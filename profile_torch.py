@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes, on one NVIDIA card.
+
+    python3 profile_torch.py [--requests 10]
+
+Serves the chip_smoke.py workload (InferenceEngine("rife", fast=1, bf16),
+r5 weights, 4 pairs of 720p content padded to 736x1280, inputs already on
+the card) and prints:
+
+- request time from CUDA events (device) and from the host clock, with
+  cudnn.benchmark off (the port's setting) and on;
+- a torch.profiler breakdown of the device time of 3 requests by kernel
+  and by class (the CUDA warp kernel, convolutions, everything else), and
+  the share of the window in which the device ran no kernel.
+
+Exits non-zero without a card.  Writes nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from chip_smoke import BATCH, CKPT, FRAME_H, FRAME_W, PAN, smooth_pair
+
+_CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "gemm", "dgrad", "wgrad",
+               "sm90_", "cutlass")
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    if "warp_planes_kernel" in low:
+        return "warp kernel (CUDA, hand-written)"
+    if any(m in low for m in _CONV_MARKS):
+        return "convolutions (cuDNN)"
+    return "other (elementwise, concat, resizes, copies)"
+
+
+def request_ms(eng, a, b, n):
+    """(device ms, host ms) per request over n requests."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        eng.interpolate(a, b)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+    from rife_tpu_torch.ops import pad_to_multiple
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30, check=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    sd = state_dict_from_jax(load_checkpoint(CKPT)[1])
+    a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
+    a = pad_to_multiple(torch.from_numpy(a), 32)[0].cuda()
+    b = pad_to_multiple(torch.from_numpy(b), 32)[0].cuda()
+    eng = InferenceEngine("rife", sd, compute_dtype=torch.bfloat16, fast=1)
+
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        for _ in range(2):
+            eng.interpolate(a, b)  # warm-up (and cuDNN's search when on)
+        dev_ms, host_ms = request_ms(eng, a, b, args.requests)
+        print(f"cudnn.benchmark={bench}: {dev_ms:.3f} ms/request on the device "
+              f"(CUDA events), {host_ms:.3f} ms/request on the host clock, "
+              f"{BATCH * 1e3 / dev_ms:.2f} frames/s, over {args.requests} requests",
+              flush=True)
+    torch.backends.cudnn.benchmark = False
+    eng.interpolate(a, b)
+    dev_ms, _ = request_ms(eng, a, b, args.requests)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.interpolate(a, b)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_name, by_class, calls = defaultdict(float), defaultdict(float), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:  # kernels, copies, memsets
+            by_name[ev.name] += ev.time_range.elapsed_us()
+            calls[ev.name] += 1
+    total = sum(by_name.values())
+    if total <= 0:
+        print("torch.profiler reported no device time", flush=True)
+        return 1
+    for k, v in by_name.items():
+        by_class[classify(k)] += v
+    print(f"\nprofiled 3 requests: {total / 3e3:.3f} ms of kernel time per request; "
+          f"window {window_us / 3e3:.3f} ms per request; device idle "
+          f"{max(0.0, 1 - total / window_us):.1%} of the profiled window, "
+          f"{max(0.0, 1 - total / 3e3 / dev_ms):.1%} of the unprofiled request "
+          f"({dev_ms:.3f} ms by CUDA events)")
+    for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {v / 3e3:8.3f} ms/request  {v / total:6.1%}  {k}")
+    print("\ntop kernels (device time per request, launches per request):")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
+        print(f"  {v / 3e3:8.3f} ms  {calls[k] / 3:6.1f}  {k[:110]}")
+    print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

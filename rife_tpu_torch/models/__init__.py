@@ -1,0 +1,6 @@
+from rife_tpu_torch.models.ifnet import IFBlock, IFNet, IFNetConfig
+from rife_tpu_torch.models.refine import ContextNet, UNet
+from rife_tpu_torch.models.registry import MODEL_REGISTRY, ModelDef, get_model_def
+
+__all__ = ["IFBlock", "IFNet", "IFNetConfig", "ContextNet", "UNet",
+           "MODEL_REGISTRY", "ModelDef", "get_model_def"]

@@ -1,0 +1,31 @@
+"""Model presets (port of rife_tpu/models/registry.py, `rife` entry).
+
+`rife_m`, `rife_2r`, `hd`, `hdv2` and `v4.25` are not ported yet
+(ROADMAP.md, queue A items 4, 8 and 16)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from rife_tpu_torch.models.ifnet import IFNet, IFNetConfig
+
+
+@dataclass(frozen=True)
+class ModelDef:
+    name: str
+    config: IFNetConfig
+    build: type
+    scale_list: tuple  # per-level divisors before the /scale knob
+    pad_multiple: int = 32  # spatial granularity the pyramid requires
+
+
+MODEL_REGISTRY: dict[str, ModelDef] = {
+    "rife": ModelDef("rife", IFNetConfig(), IFNet, (4.0, 2.0, 1.0)),
+}
+
+
+def get_model_def(name: str) -> ModelDef:
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(f"model {name!r} is not ported yet "
+                                  f"(ROADMAP.md, queue A); ported: "
+                                  f"{sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name]

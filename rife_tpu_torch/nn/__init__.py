@@ -1,0 +1,5 @@
+from rife_tpu_torch.nn.layers import (ConvPReLU, DeconvPReLU, conv2d,
+                                     conv_prelu, conv_transpose2d, prelu)
+
+__all__ = ["ConvPReLU", "DeconvPReLU", "conv2d", "conv_prelu",
+           "conv_transpose2d", "prelu"]

@@ -1,0 +1,63 @@
+"""Conv and activation primitives on (N, C, H, W), and the ConvPReLU module.
+
+Port of rife_tpu/nn/layers.py.  The convolutions go to cuDNN (or the CPU
+backend) through F.conv2d / F.conv_transpose2d: they were XLA
+convolutions in the reference, never Pallas kernels.  Weights use
+PyTorch's layouts: conv (O, I, kh, kw), transposed conv (I, O, kh, kw);
+`engine.checkpoint.state_dict_from_jax` converts the reference's.
+Compute follows the input's dtype, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def conv2d(x, weight, bias=None, stride: int = 1):
+    """torch Conv2d with padding (k - 1) // 2."""
+    pad = (weight.shape[-1] - 1) // 2
+    return F.conv2d(x, weight, bias, stride=stride, padding=pad)
+
+
+def conv_transpose2d(x, weight, bias=None):
+    """torch ConvTranspose2d(k=4, stride=2, padding=1): doubles H and W."""
+    return F.conv_transpose2d(x, weight, bias, stride=2, padding=1)
+
+
+def prelu(x, alpha):
+    """Per-channel PReLU, alpha of shape (C,)."""
+    return torch.where(x >= 0, x, alpha.view(1, -1, 1, 1) * x)
+
+
+def conv_prelu(x, weight, bias, alpha, stride: int = 1):
+    """The reference's conv() block: Conv2d + PReLU."""
+    return prelu(conv2d(x, weight, bias, stride), alpha)
+
+
+class ConvPReLU(nn.Module):
+    """3x3 Conv2d + PReLU; parameters `conv.weight`, `conv.bias`, `alpha`
+    (the reference tree's conv/w, conv/b, alpha)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.Conv2d(cin, cout, 3, stride, 1)
+        self.alpha = nn.Parameter(torch.full((cout,), 0.25))
+
+    def forward(self, x):
+        return conv_prelu(x, self.conv.weight, self.conv.bias, self.alpha,
+                          self.stride)
+
+
+class DeconvPReLU(nn.Module):
+    """k4 s2 p1 ConvTranspose2d + PReLU (`conv.weight`, `conv.bias`, `alpha`)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(cin, cout, 4, 2, 1)
+        self.alpha = nn.Parameter(torch.full((cout,), 0.25))
+
+    def forward(self, x):
+        return prelu(conv_transpose2d(x, self.conv.weight, self.conv.bias),
+                     self.alpha)

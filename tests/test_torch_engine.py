@@ -1,0 +1,100 @@
+"""rife_tpu_torch InferenceEngine vs rife_tpu's, and the port's isolation.
+
+On the CPU, with the r5 checkpoint at 128x192: the f32 engines agree to
+2e-4 abs at rung 1 (the serving default) and rung 0, and the port's bf16
+output stays at >= 40 dB PSNR against its own f32 output.
+"""
+import ast
+import os
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rife_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
+from rife_tpu.engine.inference import InferenceEngine as JaxEngine
+from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+CKPT = os.path.join(ROOT, "train_log_r5", "flownet.rtpu")
+
+
+def _smooth_pair(batch, h, w, shift, seed=7):
+    """Textured smooth content panned by `shift` px (bench.py's recipe)."""
+    rng = np.random.default_rng(seed)
+    m = max(16, shift + 8)
+    base = rng.random((batch, h + 2 * m, w + 2 * m, 3)).astype(np.float32)
+    for _ in range(3):
+        base = (base + np.roll(base, 1, 1) + np.roll(base, 1, 2)
+                + np.roll(base, 2, 1) + np.roll(base, 2, 2)) / 5
+    a = base[:, m:m + h, m:m + w]
+    b = base[:, m + shift:m + shift + h, m + shift:m + shift + w]
+    return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10 * np.log10(1.0 / max(mse, 1e-20))
+
+
+@pytest.fixture(scope="module")
+def r5_state_dict():
+    return state_dict_from_jax(load_checkpoint(CKPT)[1])
+
+
+@pytest.mark.parametrize("fast,scale", [(1, 1.0), (0, 1.0), (1, 0.5)])
+def test_engine_matches_reference_f32(r5_state_dict, fast, scale):
+    a, b = _smooth_pair(2, 128, 192, 6)
+    _, jparams = jax_load_checkpoint(CKPT)
+    jeng = JaxEngine("rife", jparams, compute_dtype=jnp.float32, fast=fast,
+                     scale=scale, warp_impl="xla")
+    want = jeng.interpolate(jnp.asarray(a), jnp.asarray(b))
+    eng = InferenceEngine("rife", r5_state_dict, compute_dtype=torch.float32,
+                          fast=fast, scale=scale, device="cpu")
+    got = eng.interpolate(a, b)
+    assert got.shape == (2, 128, 192, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-4)
+    assert eng.pad_multiple == jeng.pad_multiple
+    assert not eng.supports_timestep
+
+
+def test_engine_bf16_close_to_own_f32(r5_state_dict):
+    a, b = _smooth_pair(2, 128, 192, 6, seed=8)
+    ref = InferenceEngine("rife", r5_state_dict, fast=1, device="cpu").interpolate(a, b)
+    got = InferenceEngine("rife", r5_state_dict, compute_dtype=torch.bfloat16,
+                          fast=1, device="cpu").interpolate_batch(a, b)
+    assert got.dtype == torch.bfloat16
+    assert _psnr(got.float().numpy(), ref.numpy()) >= 40.0
+
+
+def test_engine_refuses_what_is_not_ported(r5_state_dict):
+    for kwargs in ({"fast": 2}, {"fast": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceEngine("rife", r5_state_dict, device="cpu", **kwargs)
+    for model in ("rife_m", "rife_2r", "v4.25"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceEngine(model, r5_state_dict, device="cpu")
+    eng = InferenceEngine("rife", r5_state_dict, device="cpu")
+    z = np.zeros((1, 32, 32, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.interpolate(z, z, tta=True)
+
+
+def _imports(path):
+    tree = ast.parse(Path(path).read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_rife_tpu():
+    files = sorted((ROOT / "rife_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "rife_tpu", "flax", "optax"), (f, mod)
