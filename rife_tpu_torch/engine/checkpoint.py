@@ -1,17 +1,24 @@
-"""`.rtpu` checkpoint reader (numpy only) and the weight carrier.
+"""`.rtpu` checkpoint reader and writer (numpy only) and the weight carrier.
 
 The `.rtpu` format (rife_tpu/engine/checkpoint.py): 8-byte magic, a
 little-endian u64 header length, a JSON header {"meta", "tensors": {key:
 {"dtype", "shape"}}}, then the raw tensors in sorted key order.  Keys are
 "/"-joined tree paths; all-digit levels are lists.  Training checkpoints
-hold {"params", "opt_state", "step"}; serving needs "params" only.
+hold {"params", "opt_state", "step"}; serving needs "params" only.  The
+reference trainer's optimizer is optax.adamw, whose state is
+(ScaleByAdamState(count, mu, nu), EmptyState(), ScaleByScheduleState(
+count)): keys opt_state/0/0 (int32 count), opt_state/0/1/... (mu, laid
+out like params), opt_state/0/2/... (nu), opt_state/2/0 (the schedule's
+int32 count); "step" is int64.
 
-`state_dict_from_jax` carries a reference parameter tree into this
-package's module names and PyTorch's weight layouts.
+`state_dict_from_jax` carries a reference parameter tree (or a mu or nu
+tree) into this package's module names and PyTorch's weight layouts;
+`jax_tree_from_state_dict` carries it back.
 """
 from __future__ import annotations
 
 import json
+import os
 import struct
 
 import numpy as np
@@ -80,13 +87,13 @@ def load_checkpoint(path: str):
     return meta.get("model", "rife"), tree["params"] if full else tree
 
 
-def _flatten(tree, prefix=""):
+def _flatten(tree, prefix="", sep="."):
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _flatten(tree[k], f"{prefix}{k}.")
+            yield from _flatten(tree[k], f"{prefix}{k}{sep}", sep)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}.")
+            yield from _flatten(v, f"{prefix}{i}{sep}", sep)
     else:
         yield prefix[:-1], np.asarray(tree)
 
@@ -111,3 +118,67 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
         sd[f"{parent}.{name}" if parent else name] = \
             torch.from_numpy(np.ascontiguousarray(v))
     return sd
+
+
+def jax_tree_from_state_dict(sd) -> dict:
+    """Inverse of `state_dict_from_jax`: a dict of tensors with a state
+    dict's keys -> the reference's parameter tree of f32 numpy
+    arrays ("weight" OIHW -> "w" HWIO; a transposed conv's (I, O, kh, kw)
+    -> flipped (kh, kw, I, O); "bias" -> "b")."""
+    flat = {}
+    for key, t in sd.items():
+        parent, _, leaf = key.rpartition(".")
+        v = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and parent.endswith(_DECONV_PARENTS):
+            v = np.flip(v, (2, 3)).transpose(2, 3, 0, 1)
+        elif leaf == "weight":
+            v = v.transpose(2, 3, 1, 0)
+        name = {"weight": "w", "bias": "b"}.get(leaf, leaf)
+        path = parent.replace(".", "/")
+        flat[f"{path}/{name}" if path else name] = np.ascontiguousarray(v)
+    return _unflatten(flat)
+
+
+def save_params(path: str, tree, meta: dict | None = None) -> None:
+    """Write a tree of arrays as `.rtpu`, as rife_tpu's `save_params` does
+    (leafless nodes write nothing), through a temporary file and an
+    atomic rename."""
+    flat = dict(_flatten(tree, sep="/"))
+    header = {"meta": meta or {},
+              "tensors": {k: {"dtype": str(v.dtype), "shape": list(v.shape)}
+                          for k, v in flat.items()}}
+    hb = json.dumps(header).encode()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for k in sorted(flat):
+            f.write(np.ascontiguousarray(flat[k]).tobytes())
+    os.replace(tmp, path)
+
+
+def train_tree(params: dict, mu: dict, nu: dict, step: int) -> dict:
+    """The reference trainer's checkpoint tree from state dicts of the
+    parameters and AdamW's two moments after `step` updates (Adam's count,
+    the schedule's count and the trainer's step are all `step`)."""
+    count = np.asarray(step, np.int32)
+    return {"params": jax_tree_from_state_dict(params),
+            "opt_state": [[count, jax_tree_from_state_dict(mu),
+                           jax_tree_from_state_dict(nu)], {}, [count]],
+            "step": np.asarray(step, np.int64)}
+
+
+def load_train_tree(path: str):
+    """Read a training checkpoint -> (model name, params, mu, nu state
+    dicts, step).  Adam's count, the schedule's count and the step must
+    agree, as the reference trainer keeps them."""
+    tree, meta = load_params(path)
+    adam, _, sched = tree["opt_state"]
+    counts = {int(adam[0]), int(sched[0]), int(tree["step"])}
+    if len(counts) != 1:
+        raise ValueError(f"{path}: Adam count {int(adam[0])}, schedule count "
+                         f"{int(sched[0])} and step {int(tree['step'])} differ")
+    return (meta.get("model", "rife"), state_dict_from_jax(tree["params"]),
+            state_dict_from_jax(adam[1]), state_dict_from_jax(adam[2]),
+            counts.pop())

@@ -27,7 +27,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 @contextlib.contextmanager
-def _full_f32():
+def full_f32():
     """f32 convs and matmuls in full f32 (no TF32), like the reference's
     Precision.HIGHEST; bf16 work is not affected."""
     saved = (torch.backends.cudnn.allow_tf32,
@@ -63,9 +63,8 @@ class InferenceEngine:
         self.scale = scale
         self.scale_list = tuple(s / scale for s in self.model_def.scale_list)
         net = self.model_def.build(self.model_def.config)
-        # The teacher block serves only training (not ported yet).
-        net.load_state_dict({k: v for k, v in params.items()
-                             if not k.startswith("block_tea.")})
+        net.load_state_dict(params)  # strict: the checkpoint holds every key
+        net.block_tea = None  # the training-only teacher stays off the card
         self.model = net.to(self.device, compute_dtype).eval()
 
     @torch.inference_mode()
@@ -81,7 +80,7 @@ class InferenceEngine:
                       .to(self.compute_dtype))
         b = to_planes(torch.as_tensor(img1, device=self.device)
                       .to(self.compute_dtype))
-        with _full_f32():
+        with full_f32():
             out = self.model(a, b, scale_list=self.scale_list)
         return from_planes(out["merged"][-1])
 

@@ -4,11 +4,11 @@ Port of rife_tpu/models/ifnet.py, variant "rife".  Ported: the student
 loop of the exact graph (rung 0) and of fast rung 1 (`fast_level0`: the
 level-1 block input is built at its working resolution, so level 0
 needs no full-resolution warp), for scale lists of 1 and even integers,
-and the refine stage.  Not ported yet (ROADMAP A4): `rife_m`, the "2R"
-half-resolution variant, rungs 2-4 and the teacher/distillation branch
-(`gt`).  Flow planes are (N, 4, H, W) in output-resolution pixels,
-[:, 0:2] = t->0 and [:, 2:4] = t->1; the mask logit accumulates across
-levels.
+the refine stage, and the teacher/distillation branch that training runs
+when `gt` is given (which always takes the exact graph).  Not ported yet
+(ROADMAP A4): `rife_m`, the "2R" half-resolution variant and rungs 2-4.
+Flow planes are (N, 4, H, W) in output-resolution pixels, [:, 0:2] =
+t->0 and [:, 2:4] = t->1; the mask logit accumulates across levels.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch.nn as nn
 from rife_tpu_torch.models.refine import ContextNet, UNet
 from rife_tpu_torch.nn import ConvPReLU, conv_transpose2d
 from rife_tpu_torch.ops import (plane_down2, plane_down_int, plane_up,
-                                warp2_blend_planes, warp2_planes)
+                                scale_by, warp2_blend_planes, warp2_planes)
 
 _TODO = "not ported yet (ROADMAP.md, queue A item 4)"
 
@@ -28,12 +28,15 @@ _TODO = "not ported yet (ROADMAP.md, queue A item 4)"
 @dataclass(frozen=True)
 class IFNetConfig:
     block_channels: tuple = (240, 150, 90)
+    teacher_channels: int = 90
     # Fast rung 1 (inference only, not exact): see the module docstring.
     fast_level0: bool = False
 
 
-# block0 sees (img0, img1); later blocks add 2 warps + mask + 4 flow.
+# block0 sees (img0, img1); later blocks add 2 warps + mask + 4 flow; the
+# teacher sees (img0, img1, 2 warps, mask, gt) + 4 flow.
 _BLOCK_IN = (6, 17, 17)
+_TEACHER_IN = 20
 
 
 class IFBlock(nn.Module):
@@ -80,6 +83,7 @@ class IFNet(nn.Module):
         self.cfg = cfg
         for i, (cin, c) in enumerate(zip(_BLOCK_IN, cfg.block_channels)):
             self.add_module(f"block{i}", IFBlock(cin, c))
+        self.block_tea = IFBlock(_TEACHER_IN, cfg.teacher_channels)
         self.contextnet = ContextNet()
         self.unet = UNet()
 
@@ -91,14 +95,16 @@ class IFNet(nn.Module):
 
     def forward(self, img0, img1, scale_list=(4.0, 2.0, 1.0), gt=None):
         """img0, img1: (N, 3, H, W) planes, H and W multiples of the pad
-        granularity.  Returns flow_list, mask_list (sigmoid) and merged,
-        each a list of 3 (N, C, H, W) tensors."""
-        if gt is not None:
-            raise NotImplementedError(f"the teacher/distillation branch is {_TODO}")
+        granularity; gt: the (N, 3, H, W) middle frame, which turns on the
+        teacher and the distillation loss (reference ifnet_apply).  Returns
+        flow_list, mask_list (sigmoid) and merged, each a list of 3
+        (N, C, H, W) tensors, and flow_teacher, merged_teacher and the
+        scalar loss_distill (all three None without gt)."""
         for s in scale_list:
             _check_scale(s)
         cat = torch.cat
-        fast0 = self.cfg.fast_level0 and scale_list[1] != 1
+        # The fast rungs serve inference only: with gt, the exact graph.
+        fast0 = self.cfg.fast_level0 and gt is None and scale_list[1] != 1
         fast1 = fast0 and scale_list[2] != 1
         flow_list, mask_list, merged = [], [], []
         for i, s in enumerate(scale_list):
@@ -140,9 +146,55 @@ class IFNet(nn.Module):
                 a, b = w0, w1
             merged.append(a * mask_list[i] + b * (1 - mask_list[i]))
 
+        flow_teacher = merged_teacher = loss_distill = None
+        if gt is not None:
+            flow_teacher, merged_teacher = self._teacher(img0, img1, w0, w1,
+                                                         mask, flow, gt)
+            loss_distill = _distill(merged, flow_list, gt, flow_teacher,
+                                    merged_teacher)
+
         c0, c1 = self.contextnet.forward_pair(img0, img1, flow[:, 0:2],
                                               flow[:, 2:4])
         res = self.unet(cat([img0, img1, w0, w1, mask, flow], 1), c0, c1)
         merged[2] = torch.clamp(merged[2] + (res * 2 - 1), 0.0, 1.0)
         return {"flow_list": flow_list, "mask_list": mask_list,
-                "merged": merged}
+                "merged": merged, "flow_teacher": flow_teacher,
+                "merged_teacher": merged_teacher, "loss_distill": loss_distill}
+
+    def _teacher(self, img0, img1, w0, w1, mask, flow, gt):
+        """The privileged teacher block at full resolution (reference
+        ifblock_apply at scale 1): its half-resolution output comes back up
+        through the general bilinear resize, as in the reference, and the
+        teacher's flow warps the pair once more."""
+        x = torch.cat([img0, img1, w0, w1, mask, gt, flow], 1)
+        tmp = scale_by(self.block_tea(x), 2.0)
+        # Summed in f32 whatever the compute dtype: in bf16 a residual below
+        # half an ulp of the flow vanishes in the sum, the teacher's flow
+        # then equals the student's at that pixel, and the distillation's
+        # sqrt at 0 gives a NaN gradient to every block (rife_tpu's bf16
+        # step does so on the CPU; its TPU run trained, presumably because
+        # XLA kept the sum and the difference in f32 inside one fusion).
+        # The warp takes the f32 flow as it is.
+        flow_teacher = flow.float() + tmp[:, :4].float() * 2.0
+        w0t, w1t = warp2_planes(img0, img1, flow_teacher[:, 0:2],
+                                flow_teacher[:, 2:4])
+        mask_teacher = torch.sigmoid(mask + tmp[:, 4:5])
+        return flow_teacher, w0t * mask_teacher + w1t * (1 - mask_teacher)
+
+
+def _distill(merged, flow_list, gt, flow_teacher, merged_teacher):
+    """Privileged distillation (reference IFNet.py:100-102): supervise each
+    level's flow by the teacher's where the teacher reconstructs gt better
+    by more than 0.01.  The mask and the teacher's flow carry no gradient.
+    The distances are taken in the teacher flow's f32.  (Where a level's
+    flow equals the teacher's exactly, sqrt's gradient at 0 is NaN, as in
+    the reference.)"""
+    err_t = (merged_teacher - gt).abs().mean(1, keepdim=True)
+    ft = flow_teacher.detach()
+    total = 0.0
+    for m, f in zip(merged, flow_list):
+        err_s = (m - gt).abs().mean(1, keepdim=True)
+        loss_mask = (err_s > err_t + 0.01).to(ft.dtype).detach()
+        dist = ((ft - f.to(ft.dtype)) ** 2).mean(1, keepdim=True).sqrt()
+        total = total + (dist * loss_mask).mean()
+    return total

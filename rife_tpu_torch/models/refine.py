@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from rife_tpu_torch.nn import ConvPReLU, DeconvPReLU
+from rife_tpu_torch.nn import ConvPReLU, DeconvPReLU, conv2d
 from rife_tpu_torch.ops import plane_down2, warp_planes
 
 _C = 16  # base channel width (reference refine.py:35)
@@ -80,4 +80,4 @@ class UNet(nn.Module):
         x = self.up1(cat([x, s2], 1))
         x = self.up2(cat([x, s1], 1))
         x = self.up3(cat([x, s0], 1))
-        return torch.sigmoid(self.conv(x))
+        return torch.sigmoid(conv2d(x, self.conv.weight, self.conv.bias))

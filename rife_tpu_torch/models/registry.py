@@ -6,7 +6,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from rife_tpu_torch.models.ifnet import IFNet, IFNetConfig
+from rife_tpu_torch.nn import init_torch_default_
 
 
 @dataclass(frozen=True)
@@ -16,6 +19,11 @@ class ModelDef:
     build: type
     scale_list: tuple  # per-level divisors before the /scale knob
     pad_multiple: int = 32  # spatial granularity the pyramid requires
+
+    def init(self, generator: torch.Generator) -> dict:
+        """A state dict of torch-default initial parameters (f32, on the
+        CPU) drawn from `generator` (reference ModelDef.init)."""
+        return init_torch_default_(self.build(self.config), generator).state_dict()
 
 
 MODEL_REGISTRY: dict[str, ModelDef] = {

@@ -1,5 +1,6 @@
+from rife_tpu_torch.nn.init import init_torch_default_
 from rife_tpu_torch.nn.layers import (ConvPReLU, DeconvPReLU, conv2d,
                                      conv_prelu, conv_transpose2d, prelu)
 
 __all__ = ["ConvPReLU", "DeconvPReLU", "conv2d", "conv_prelu",
-           "conv_transpose2d", "prelu"]
+           "conv_transpose2d", "init_torch_default_", "prelu"]

@@ -5,7 +5,9 @@ backend) through F.conv2d / F.conv_transpose2d: they were XLA
 convolutions in the reference, never Pallas kernels.  Weights use
 PyTorch's layouts: conv (O, I, kh, kw), transposed conv (I, O, kh, kw);
 `engine.checkpoint.state_dict_from_jax` converts the reference's.
-Compute follows the input's dtype, as in the reference.
+Compute follows the input's dtype, as in the reference: weights, biases
+and PReLU slopes are cast to `x.dtype` at each call (a no-op when they
+already have it), so f32 master parameters train with bf16 activations.
 """
 from __future__ import annotations
 
@@ -14,20 +16,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _like(t, x):
+    return None if t is None else t.to(x.dtype)
+
+
 def conv2d(x, weight, bias=None, stride: int = 1):
     """torch Conv2d with padding (k - 1) // 2."""
     pad = (weight.shape[-1] - 1) // 2
-    return F.conv2d(x, weight, bias, stride=stride, padding=pad)
+    return F.conv2d(x, _like(weight, x), _like(bias, x), stride=stride, padding=pad)
 
 
 def conv_transpose2d(x, weight, bias=None):
     """torch ConvTranspose2d(k=4, stride=2, padding=1): doubles H and W."""
-    return F.conv_transpose2d(x, weight, bias, stride=2, padding=1)
+    return F.conv_transpose2d(x, _like(weight, x), _like(bias, x), stride=2,
+                              padding=1)
 
 
 def prelu(x, alpha):
     """Per-channel PReLU, alpha of shape (C,)."""
-    return torch.where(x >= 0, x, alpha.view(1, -1, 1, 1) * x)
+    return torch.where(x >= 0, x, _like(alpha, x).view(1, -1, 1, 1) * x)
 
 
 def conv_prelu(x, weight, bias, alpha, stride: int = 1):

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes `extern "C"` functions and is compiled by
 hand (no `torch.utils.cpp_extension`, no ninja: a source without
 PyTorch's headers builds in seconds) into `build/rife_tpu_torch/` at the
-root of the checkout, at first use.  The file name carries a hash of the
+root of the checkout, at first use; `build_all` runs one nvcc per source
+in parallel.  The file name carries a hash of the
 source and of the nvcc command (compiler path and flags), so an edited
 source or flag rebuilds and a stale library is never loaded.  The library is written to a temporary
 name and moved into place with `os.replace`, so a build cut off half way
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -75,3 +77,11 @@ def build(name: str) -> Built:
     log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return Built(lib, seconds, proc.stdout + proc.stderr)
+
+
+def build_all(names) -> dict[str, Built]:
+    """Build several sources at once, one nvcc process each, all started
+    together; raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))

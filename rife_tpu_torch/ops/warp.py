@@ -8,9 +8,11 @@ Flow channels are [dx, dy]; a pair flow holds t->0 in [:, 0:2] and t->1
 in [:, 2:4].  Coordinates are always f32, even for a bf16 flow; the blend
 is computed in f32 and rounded once to the image's dtype.
 
-`warp_planes` dispatches on the tensor's device: a CPU tensor goes to the
-plain version `warp_planes_ref`, a CUDA tensor to the hand-written kernel
-(`ops/cuda/warp.py`), which launches or raises.
+`warp_planes` is differentiable in the image and the flow (a
+`torch.autograd.Function`) and dispatches on the tensor's device: a CPU
+tensor goes to the plain versions `warp_planes_ref` and
+`warp_planes_bwd_ref`, a CUDA tensor to the hand-written kernels
+(`ops/cuda/warp.py`), which launch or raise.
 """
 from __future__ import annotations
 
@@ -29,16 +31,20 @@ def from_planes(p: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 2, 3, 1).contiguous()
 
 
-def warp_planes_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch warp: (N, C, H, W) x (N, 2, H, W) -> (N, C, H, W).
-
-    The reference the kernel is held to, and the CPU path."""
+def _sample(img: torch.Tensor, flow: torch.Tensor):
+    """What the warp and its gradient share: the four flat tap indices
+    (N, 1, H*W) each, the weights' fractions fx, fy (N, 1, H, W), and the
+    masks of raw coordinates strictly inside the frame (N, H, W), in the
+    compute type (f32, f64 for an f64 image)."""
     n, c, h, w = img.shape
-    f = flow.float()
-    xs = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w)
-    ys = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1)
-    ix = (xs + f[:, 0]).clamp(0.0, w - 1)
-    iy = (ys + f[:, 1]).clamp(0.0, h - 1)
+    acc = torch.float64 if img.dtype == torch.float64 else torch.float32
+    f = flow.to(acc)
+    xs = torch.arange(w, device=img.device, dtype=acc).view(1, 1, w)
+    ys = torch.arange(h, device=img.device, dtype=acc).view(1, h, 1)
+    rawx = xs + f[:, 0]
+    rawy = ys + f[:, 1]
+    ix = rawx.clamp(0.0, w - 1)
+    iy = rawy.clamp(0.0, h - 1)
     x0 = ix.floor()
     y0 = iy.floor()
     fx = (ix - x0).unsqueeze(1)
@@ -47,29 +53,127 @@ def warp_planes_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     y0i = y0.long()
     x1i = (x0i + 1).clamp(max=w - 1)
     y1i = (y0i + 1).clamp(max=h - 1)
+    lin = [(yi * w + xi).reshape(n, 1, h * w)
+           for yi, xi in ((y0i, x0i), (y0i, x1i), (y1i, x0i), (y1i, x1i))]
+    inx = (rawx > 0) & (rawx < w - 1)
+    iny = (rawy > 0) & (rawy < h - 1)
+    return lin, fx, fy, inx, iny
+
+
+def _taps(img, lin, acc):
+    """The four gathered taps (v00, v01, v10, v11), (N, C, H, W) in `acc`."""
+    n, c, h, w = img.shape
     flat = img.reshape(n, c, h * w)
+    return [torch.gather(flat, 2, i.expand(n, c, h * w)).reshape(n, c, h, w).to(acc)
+            for i in lin]
 
-    def gather(yi, xi):
-        lin = (yi * w + xi).reshape(n, 1, h * w).expand(n, c, h * w)
-        return torch.gather(flat, 2, lin).reshape(n, c, h, w).float()
 
-    top = gather(y0i, x0i) * (1 - fx) + gather(y0i, x1i) * fx
-    bot = gather(y1i, x0i) * (1 - fx) + gather(y1i, x1i) * fx
+def warp_planes_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch warp: (N, C, H, W) x (N, 2, H, W) -> (N, C, H, W).
+
+    The reference the kernel is held to, and the CPU path's forward."""
+    lin, fx, fy, _, _ = _sample(img, flow)
+    v00, v01, v10, v11 = _taps(img, lin, fx.dtype)
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
     return (top * (1 - fy) + bot * fy).to(img.dtype)
 
 
-def warp_planes(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp `img` (N, C, H, W) by `flow` (N, 2, H, W).
+def warp_planes_bwd_ref(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                        need_img: bool = True, need_flow: bool = True):
+    """Plain PyTorch gradient of `warp_planes_ref` for the cotangent `g`
+    -> (d_img or None, d_flow or None), written out (not autograd):
 
-    `warp_planes.launches` counts the kernel launches (CUDA tensors only)."""
-    if img.device.type == "cpu":
-        return warp_planes_ref(img, flow)
-    out = _cuda_warp.launch(img, flow)
-    warp_planes.launches += 1
-    return out
+    - d_flow[:, 0] = sum_c g * ((v01 - v00)(1 - fy) + (v11 - v10) fy), and
+      d_flow[:, 1] = sum_c g * ((v10 - v00)(1 - fx) + (v11 - v01) fx), each
+      zeroed where the raw coordinate was clamped (strictly 0 < x + dx <
+      W - 1, as rife_tpu's `_planes_diff_bwd`);
+    - d_img = the adjoint of the 4-tap gather with the flow held constant
+      (`scatter_add_`).
+
+    Sums in f32 (f64 for f64 inputs), rounded once to the input's dtype.
+    The CPU path's backward, and the reference the CUDA kernel is held to."""
+    n, c, h, w = img.shape
+    lin, fx, fy, inx, iny = _sample(img, flow)
+    acc = fx.dtype
+    gf = g.to(acc)
+    gx, gy = 1 - fx, 1 - fy
+    d_img = d_flow = None
+    if need_flow:
+        v00, v01, v10, v11 = _taps(img, lin, acc)
+        dx = (gf * ((v01 - v00) * gy + (v11 - v10) * fy)).sum(1)
+        dy = (gf * ((v10 - v00) * gx + (v11 - v01) * fx)).sum(1)
+        d_flow = torch.stack([dx * inx, dy * iny], 1).to(flow.dtype)
+    if need_img:
+        flat = torch.zeros(n, c, h * w, dtype=acc, device=img.device)
+        for i, wt in zip(lin, (gx * gy, fx * gy, gx * fy, fx * fy)):
+            flat.scatter_add_(2, i.expand(n, c, h * w),
+                              (gf * wt).reshape(n, c, h * w))
+        d_img = flat.reshape(n, c, h, w).to(img.dtype)
+    return d_img, d_flow
+
+
+def _bwd_term_scale(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor):
+    """For each output of `warp_planes_bwd_ref(img, flow, g)`, the sum of
+    the magnitudes of its terms -> (d_img, d_flow) in f32: the scale of the
+    error that summing in another order (channel runs, atomics) makes,
+    which the kernel's checks hold it to."""
+    lin, fx, fy, inx, iny = _sample(img, flow)
+    v00, v01, v10, v11 = _taps(img, lin, torch.float32)
+    ga = g.float().abs()
+    mx = (ga * ((v01 - v00).abs() * (1 - fy) + (v11 - v10).abs() * fy)).sum(1)
+    my = (ga * ((v10 - v00).abs() * (1 - fx) + (v11 - v01).abs() * fx)).sum(1)
+    m_img, _ = warp_planes_bwd_ref(img.float(), flow.float(), ga, True, False)
+    return m_img, torch.stack([mx * inx, my * iny], 1)
+
+
+class _WarpPlanes(torch.autograd.Function):
+    """`warp_planes` with its gradient: the plain versions on CPU tensors,
+    the CUDA kernels on CUDA tensors.  Only `img` and `flow` are saved;
+    the backward recomputes the taps."""
+
+    @staticmethod
+    def forward(ctx, img, flow):
+        ctx.save_for_backward(img, flow)
+        if img.device.type == "cpu":
+            return warp_planes_ref(img, flow)
+        out = _cuda_warp.launch(img, flow)
+        warp_planes.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flow = ctx.saved_tensors
+        need_img, need_flow = ctx.needs_input_grad
+        return warp_planes_bwd(img, flow, g.to(img.dtype).contiguous(),
+                               need_img, need_flow)
+
+
+def warp_planes(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp `img` (N, C, H, W) by `flow` (N, 2, H, W); differentiable in
+    both.
+
+    `warp_planes.launches` counts the forward kernel's launches (CUDA
+    tensors only); `warp_planes_bwd.launches` the backward's."""
+    return _WarpPlanes.apply(img, flow)
 
 
 warp_planes.launches = 0
+
+
+def warp_planes_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                    need_img: bool = True, need_flow: bool = True):
+    """Gradient of `warp_planes` for the cotangent `g`: `warp_planes_bwd_ref`
+    on CPU tensors, the CUDA kernel (`ops/cuda/warp.py`) on CUDA tensors,
+    which launches or raises.  -> (d_img or None, d_flow or None)."""
+    if img.device.type == "cpu":
+        return warp_planes_bwd_ref(img, flow, g, need_img, need_flow)
+    out = _cuda_warp.launch_bwd(img, flow, g, need_img, need_flow)
+    warp_planes_bwd.launches += 1
+    return out
+
+
+warp_planes_bwd.launches = 0
 
 
 def warp2_planes(img_a, img_b, flow_a, flow_b):

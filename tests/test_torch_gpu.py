@@ -1,5 +1,6 @@
-"""rife_tpu_torch on the card: the CUDA kernel against its plain version,
-and the engine through the kernel against the CPU path.
+"""rife_tpu_torch on the card: the CUDA warp kernel and its gradient kernel
+against their plain versions, the engine through the kernel against the
+CPU path, and two training steps through both kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -41,15 +42,22 @@ def _flow(rng, n, h, w, kind):
     return np.repeat(np.repeat(blk, 8, 2), 8, 3)[:, :, :h, :w]
 
 
+# (image, flow) dtypes: each the kernels instantiate.  The bf16 training
+# step passes a bf16 image with an f32 flow to the teacher's pair warp.
+_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+           (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+_DTYPE_IDS = ["bf16", "f32", "bf16-img-f32-flow", "f32-img-bf16-flow"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("kind", ["smooth", "out_of_frame", "blocks"])
-def test_kernel_matches_plain_version(dtype, kind):
+def test_kernel_matches_plain_version(dtype, flow_dtype, kind):
     _need_card()
     rng = np.random.default_rng(3)
     img = torch.from_numpy(rng.random((4, 19, 67, 131), np.float32)).cuda().to(dtype)
     flow = torch.from_numpy(_flow(rng, 4, 67, 131, kind).astype(np.float32))
-    flow = flow.cuda().to(dtype)
+    flow = flow.cuda().to(flow_dtype)
     before = tw.warp_planes.launches
     got = tw.warp_planes(img, flow)
     assert tw.warp_planes.launches == before + 1
@@ -89,3 +97,77 @@ def test_engine_goes_through_the_kernel():
     assert tw.warp_planes.launches - before == 7
     # cuDNN and the CPU backend sum the convolutions in other orders.
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("kind", ["smooth", "out_of_frame", "blocks"])
+@pytest.mark.parametrize("need_img", [True, False])
+def test_backward_kernel_matches_plain_version(dtype, flow_dtype, kind, need_img):
+    """f32: within 1e-5 of the sum of the terms' magnitudes (channel and
+    atomic summation order); bf16: plus one bf16 ulp of the plain
+    version's f32 result (one rounding)."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.normal(0, 2, (3, 37, 45, 67)).astype(np.float32))
+    flow = torch.from_numpy(_flow(rng, 3, 45, 67, kind).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (3, 37, 45, 67)).astype(np.float32))
+    img, g = (t.cuda().to(dtype) for t in (img, g))
+    flow = flow.cuda().to(flow_dtype)
+    before = tw.warp_planes_bwd.launches
+    d_img, d_flow = tw.warp_planes_bwd(img, flow, g, need_img, True)
+    assert tw.warp_planes_bwd.launches == before + 1
+    assert (d_img is not None) == need_img and d_flow.dtype == flow_dtype
+    assert d_img is None or d_img.dtype == dtype
+    want = tw.warp_planes_bwd_ref(img.float(), flow.float(), g.float(), need_img, True)
+    scale = tw._bwd_term_scale(img, flow, g)
+    torch.cuda.synchronize()
+    for got, w, m in zip((d_img, d_flow), want, scale):
+        if got is None:
+            continue
+        lim = 1e-5 * m.cpu().numpy()
+        if got.dtype == torch.bfloat16:
+            lim = lim + _bf16_ulp(w.cpu().numpy())
+        err = (got.float() - w).abs().cpu().numpy()
+        assert np.all(err <= lim), float(err.max())
+
+
+@pytest.mark.gpu
+def test_warp_on_the_card_has_a_gradient_through_the_kernel():
+    _need_card()
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.random((2, 16, 24, 40), np.float32)).cuda()
+    flow = torch.from_numpy(_flow(rng, 2, 24, 40, "smooth").astype(np.float32)).cuda()
+    wts = torch.from_numpy(rng.random((2, 16, 24, 40), np.float32)).cuda()
+    ti, tf = img.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    out = tw.warp_planes(ti, tf)
+    assert out.grad_fn is not None
+    before = tw.warp_planes_bwd.launches
+    (out * wts).sum().backward()
+    assert tw.warp_planes_bwd.launches == before + 1
+    ri, rf = img.cpu().requires_grad_(True), flow.cpu().requires_grad_(True)
+    (tw.warp_planes(ri, rf) * wts.cpu()).sum().backward()
+    np.testing.assert_allclose(ti.grad.cpu().numpy(), ri.grad.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tf.grad.cpu().numpy(), rf.grad.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_two_training_steps_on_the_card():
+    """bf16 training from a random init at 2x64x64: finite losses, 8
+    forward and 8 backward warp launches per step, every parameter moves."""
+    _need_card()
+    from rife_tpu_torch.data import SyntheticTriplets, batch_iterator
+    from rife_tpu_torch.models import get_model_def
+    from rife_tpu_torch.train import train_init, train_step
+
+    state = train_init(get_model_def("rife"), total_steps=10,
+                       schedule=lambda step: 2e-4)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    batches = batch_iterator(SyntheticTriplets(n=4, h=72, w=72), 2, crop=64)
+    f0, b0 = tw.warp_planes.launches, tw.warp_planes_bwd.launches
+    losses = [float(train_step(state, next(batches), torch.bfloat16)["loss"])
+              for _ in range(2)]
+    assert np.isfinite(losses).all()
+    assert tw.warp_planes.launches - f0 == 16 and tw.warp_planes_bwd.launches - b0 == 16
+    for k, v in state.model.state_dict().items():
+        assert not torch.equal(v, before[k]), k

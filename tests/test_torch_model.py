@@ -130,9 +130,10 @@ def _compare(monkeypatch, jparams, block_channels, fast, scale_list, h, w):
     fn = jax.jit(functools.partial(ifnet_apply, cfg=jcfg, scale_list=scale_list))
     want = fn(jparams, jnp.asarray(img0), jnp.asarray(img1))
 
-    net = IFNet(IFNetConfig(block_channels=block_channels, fast_level0=fast))
     sd = state_dict_from_jax(jparams)
-    net.load_state_dict({k: v for k, v in sd.items() if not k.startswith("block_tea.")})
+    net = IFNet(IFNetConfig(block_channels=block_channels, fast_level0=fast,
+                            teacher_channels=sd["block_tea.conv0.1.conv.weight"].shape[0]))
+    net.load_state_dict(sd)
     tcalls = _count_calls(monkeypatch, twarp, "warp_planes_ref")
     with torch.no_grad():
         got = net(torch.from_numpy(img0).permute(0, 3, 1, 2).contiguous(),
@@ -175,9 +176,40 @@ def test_ifnet_r5_weights_match_reference(monkeypatch, fast):
 
 
 def test_unported_branches_raise():
+    # (The teacher branch, `gt=`, is ported: test_teacher_branch_matches_reference.)
     net = IFNet(IFNetConfig(block_channels=(8, 8, 8)))
     x = torch.zeros(1, 3, 32, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(x, x, gt=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         net(x, x, scale_list=(3.0, 2.0, 1.0))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_teacher_branch_matches_reference(monkeypatch, fast):
+    """ifnet_apply(..., gt=) with the r5 weights at 64x96, f32: the
+    teacher's flow and frame and every level's frame to 2e-4 abs, the
+    distillation loss to 1e-4; 8 pair warps on both sides.  gt turns the
+    fast rungs off in both packages."""
+    img0, img1 = _pair(64, 96)
+    gt = np.ascontiguousarray(0.5 * (img0 + img1) + 0.01)
+    jcalls = _count_calls(monkeypatch, jwarp, "warp_planes")
+    monkeypatch.setattr(jrefine, "warp_planes", jwarp.warp_planes)
+    jcfg = JaxIFNetConfig(fast_level0=fast)
+    fn = jax.jit(functools.partial(ifnet_apply, cfg=jcfg))
+    want = fn(_r5(), jnp.asarray(img0), jnp.asarray(img1), gt=jnp.asarray(gt))
+
+    net = IFNet(IFNetConfig(fast_level0=fast))
+    net.load_state_dict(state_dict_from_jax(_r5()))
+    tcalls = _count_calls(monkeypatch, twarp, "warp_planes_ref")
+    planes = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2).contiguous()  # noqa: E731
+    with torch.no_grad():
+        got = net(planes(img0), planes(img1), gt=planes(gt))
+    nhwc = lambda t: t.permute(0, 2, 3, 1).numpy()  # noqa: E731
+    for key in ("flow_teacher", "merged_teacher"):
+        np.testing.assert_allclose(nhwc(got[key]), np.asarray(want[key]), rtol=0,
+                                   atol=2e-4, err_msg=key)
+    for g, w in zip(got["merged"], want["merged"]):
+        np.testing.assert_allclose(nhwc(g), np.asarray(w), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(float(got["loss_distill"]), float(want["loss_distill"]),
+                               rtol=0, atol=1e-4)
+    assert float(want["loss_distill"]) > 0
+    assert tcalls[0] == jcalls[0] == 8

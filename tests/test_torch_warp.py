@@ -109,3 +109,99 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine("rife", {}, device=None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def _grads_port(img, flow, wts, img_grad=True):
+    """d/img and d/flow of sum(wts * warp_planes(img, flow)) through the
+    port's autograd.Function (the plain backward on the CPU)."""
+    ti = torch.from_numpy(img).requires_grad_(img_grad)
+    tf = torch.from_numpy(flow).requires_grad_(True)
+    (torch.from_numpy(wts) * tw.warp_planes(ti, tf)).sum().backward()
+    return (ti.grad.numpy() if img_grad else None), tf.grad.numpy()
+
+
+@pytest.mark.parametrize("c,h,w,kind", [
+    (3, 37, 53, "smooth"), (16, 24, 40, "out_of_frame"), (3, 64, 96, "blocks"),
+    (32, 20, 28, "smooth"),
+])
+def test_warp_grad_matches_xla_vjp_f32(c, h, w, kind):
+    """The port's backward against jax.vjp of the exact XLA warp, f32.
+    Flows drawn from continuous distributions never put a raw coordinate
+    exactly on a border, where JAX's clip gives half a gradient and the
+    port (like the Pallas VJP) none."""
+    import jax
+
+    rng = np.random.default_rng(100 + c + h)
+    img = rng.normal(0, 1, (2, c, h, w)).astype(np.float32)
+    flow = _flow(rng, 2, h, w, kind).astype(np.float32)
+    if kind == "smooth":  # and flows above 64 px in one sample
+        flow[1] *= 20.0
+    wts = rng.normal(0, 1, (2, c, h, w)).astype(np.float32)
+    _, vjp = jax.vjp(warp_xla_planes, jnp.asarray(img), jnp.asarray(flow))
+    want_img, want_flow = (np.asarray(x) for x in vjp(jnp.asarray(wts)))
+    got_img, got_flow = _grads_port(img, flow, wts)
+    np.testing.assert_allclose(got_img, want_img, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_flow, want_flow, rtol=0, atol=1e-4)
+
+
+def test_warp_grad_matches_pallas_vjp():
+    """Against rife_tpu's Pallas kernel-grad VJP (interpret mode on the
+    CPU), as tests/test_pallas_warp.py runs it: d/img is the same scatter
+    adjoint; d/flow differs by the Pallas path's bf16 taps."""
+    import jax
+
+    from rife_tpu.ops.warp import warp_planes_pallas_diff
+
+    rng = np.random.default_rng(21)
+    n, c, h, w = 1, 3, 32, 128
+    img = rng.random((n, c, h, w), np.float32)
+    flow = _flow(rng, n, h, w, "smooth").astype(np.float32) + 0.37
+    wts = rng.random((n, c, h, w), np.float32)
+
+    def loss(im, fl):
+        return jnp.sum(jnp.asarray(wts) * warp_planes_pallas_diff(im, fl))
+
+    want_img, want_flow = (np.asarray(x) for x in jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(img), jnp.asarray(flow)))
+    got_img, got_flow = _grads_port(img, flow, wts)
+    np.testing.assert_allclose(got_img, want_img, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_flow, want_flow, rtol=0, atol=0.02)
+
+
+def test_warp_gradcheck_f64():
+    """torch.autograd.gradcheck of the plain backward in f64, with every
+    sample inside the frame and its fractions in [0.2, 0.8] (away from the
+    kinks of floor and clamp)."""
+    rng = np.random.default_rng(4)
+    n, c, h, w = 2, 3, 9, 11
+    img = torch.from_numpy(rng.normal(0, 1, (n, c, h, w))).requires_grad_(True)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tx = rng.integers(1, w - 2, (n, h, w)) + rng.uniform(0.2, 0.8, (n, h, w))
+    ty = rng.integers(1, h - 2, (n, h, w)) + rng.uniform(0.2, 0.8, (n, h, w))
+    flow = torch.from_numpy(np.stack([tx - xx, ty - yy], 1)).requires_grad_(True)
+    assert torch.autograd.gradcheck(tw.warp_planes, (img, flow), eps=1e-6,
+                                    atol=1e-7, rtol=1e-6)
+
+
+def test_warp_grad_zero_where_clamped_and_only_what_is_needed():
+    rng = np.random.default_rng(8)
+    n, c, h, w = 2, 4, 12, 16
+    img = rng.normal(0, 1, (n, c, h, w)).astype(np.float32)
+    flow = _flow(rng, n, h, w, "smooth").astype(np.float32)
+    # Half the rows sample outside the frame on x, some columns on y.
+    flow[:, 0, : h // 2] += 3 * w
+    flow[:, 1, :, : w // 4] -= 2 * h
+    wts = rng.normal(0, 1, (n, c, h, w)).astype(np.float32)
+    got_img, got_flow = _grads_port(img, flow, wts, img_grad=False)
+    assert got_img is None
+    assert np.all(got_flow[:, 0, : h // 2] == 0)
+    assert np.all(got_flow[:, 1, :, : w // 4] == 0)
+    assert np.any(got_flow[:, 0, h // 2:] != 0)
+    d_img, d_flow = tw.warp_planes_bwd(torch.from_numpy(img), torch.from_numpy(flow),
+                                       torch.from_numpy(wts), need_img=True,
+                                       need_flow=False)
+    assert d_flow is None and d_img.shape == img.shape
+    before = tw.warp_planes_bwd.launches
+    tw.warp_planes_bwd(torch.from_numpy(img), torch.from_numpy(flow),
+                       torch.from_numpy(wts))
+    assert tw.warp_planes_bwd.launches == before  # the CPU path launches nothing
