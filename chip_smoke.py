@@ -6,33 +6,48 @@
 Phases, each timed against its own budget:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the two CUDA sources for sm_90a, the warp and its
-   gradient, one process each in parallel, into build/rife_tpu_torch/
-   (registers and spills from -Xptxas -v);
+2. build: nvcc compiles the three CUDA sources for sm_90a (the warp, its
+   gradient and the fused pair warp + blend), one process each in
+   parallel, into build/rife_tpu_torch/ (registers and spills from
+   -Xptxas -v);
 3. kernels: the warp kernel against its plain PyTorch version, on the
-   card, at the shapes one forward of the main path gives it (bf16), plus
-   one f32 shape and a +-200 px per-8x8-block flow that leaves the frame;
-   kernel, plain-version and F.grid_sample times beside the memory bound;
+   card, at the shapes one forward of the paper model's serving path
+   gives it (bf16), plus one f32 shape and a +-200 px per-8x8-block flow
+   that leaves the frame; the fused warp + blend kernel against its plain
+   version at its two serving launches (v4.25's blend-only, the paper
+   model's with the pair; bf16), in f32 and with the block flow; kernel,
+   plain-version and library times beside the memory bound;
 4. main path: InferenceEngine("rife", fast=1, bf16) with the r5 weights
-   serves 3 requests of 4 pairs of 720p content (padded to 736x1280); the
-   kernel must be launched 7 times per forward and the gradient kernel
-   never; the output must be finite, in [0, 1], >= 40 dB PSNR against the
-   port's own f32 output, and the f32 engine on the card must agree with
-   the CPU path at 128x192;
-5. train: the gradient kernel against its plain version at the 8 warp
+   serves 3 requests of 4 pairs of 720p content (padded to 736x1280);
+   each forward must launch the warp kernel 6 times and the fused kernel
+   once (7 warps and no fused launch with `use_fuse_blend` off), the
+   gradient kernel never; the output must be finite, in [0, 1], >= 40 dB
+   PSNR against the port's own f32 output, and the f32 engine on the card
+   must agree with the CPU path at 128x192;
+5. v4.25: InferenceEngine("v4.25", bf16) with the in-repo v4.25 weights
+   serves 3 requests of the same pairs padded to 768x1280 at rung 1 and
+   at rung 0: 4 warp launches and 1 final launch (fused, or a 5th warp)
+   per forward, >= 40 dB against the port's own f32, timestep 0.25 gives
+   another frame than 0.5, the f32 card output agrees with the CPU path;
+   the warp kernel against its plain version at v4.25's 7-channel launch
+   shapes;
+6. A/B: both models' rung-1 requests with the fused final level and with
+   the composed one, interleaved, by CUDA events: the numbers that set
+   `use_fuse_blend`'s default;
+7. train: the gradient kernel against its plain version at the 8 warp
    shapes of one training step (batch 16, 224x224 crops, N = 32) in bf16,
    once in f32 and once with the +-200 px block flow, timed beside its
    bytes bound, the plain version and grid_sampler_2d_backward; then the
    training path: the r5 run resumed (params, AdamW state, step 16000)
    trains one warm-up and 10 timed bf16 steps on SyntheticTriplets
-   (ms/step, samples/s; 8 forward and 8 backward warp launches per step;
-   finite losses; every parameter moves), a profiled device-time
-   breakdown of a step, the bf16 step's gradients against the f32 step's
-   (cosine >= 0.99 per block), one f32 step on the card against the CPU
-   path at 2x64x64 (loss <= 1e-4 relative, gradients <= 1e-3 relative
-   norm per parameter), and from a random init at lr 2e-4 30 steps whose
-   loss must fall below its start and 20 steps on one fixed batch whose
-   loss must fall by 10%.
+   (ms/step, samples/s; 8 forward and 8 backward warp launches per step
+   and no fused launch; finite losses; every parameter moves), a profiled
+   device-time breakdown of a step, the bf16 step's gradients against the
+   f32 step's (cosine >= 0.99 per block), one f32 step on the card
+   against the CPU path at 2x64x64 (loss <= 1e-4 relative, gradients
+   <= 1e-3 relative norm per parameter), and from a random init at lr
+   2e-4 30 steps whose loss must fall below its start and 20 steps on one
+   fixed batch whose loss must fall by 10%.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -55,25 +70,45 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "train_log_r5", "flownet.rtpu")
+CKPT_V425 = os.path.join(ROOT, "train_log_r5_v425", "flownet.rtpu")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
-            "train": 300}
+            "v4.25": 150, "A/B": 90, "train": 300}
 BATCH, FRAME_H, FRAME_W, PAN = 4, 720, 1280, 32
 TIMED_LAUNCHES = 20
 # One forward of the rung-1 main path at batch 4 (736x1280): each launch
 # warps a batch-concatenated pair (N = 8).  (name, C, H, W, launches).
+# The final level's pair is the fused kernel's launch (BLEND_LAUNCHES), or
+# one more full-resolution warp launch with `use_fuse_blend` off.
 MAIN_PATH_WARPS = [
     ("level-1 pair, half res", 3, 368, 640, 1),
-    ("level-1 and level-2 pairs, full res", 3, 736, 1280, 2),
+    ("level-1 pair, full res", 3, 736, 1280, 1),
     ("context level 0", 16, 368, 640, 1),
     ("context level 1", 32, 184, 320, 1),
     ("context level 2", 64, 92, 160, 1),
     ("context level 3", 128, 46, 80, 1),
 ]
 LAUNCHES_PER_FORWARD = sum(m[-1] for m in MAIN_PATH_WARPS)
+# v4.25 at batch 4 (768x1280): the 7-channel [img | feat] pair warps
+# (N = 8) per forward, by rung, before the final level.  (name, C, H, W,
+# launches per rung-1 forward, per rung-0 forward.)
+V425_PAD = 64
+V425_WARPS = [
+    ("level-1 input at 1/8", 7, 96, 160, 1, 0),
+    ("level-2 input at 1/4", 7, 192, 320, 1, 0),
+    ("level-3 input at 1/2", 7, 384, 640, 1, 0),
+    ("full res", 7, 768, 1280, 1, 4),
+]
+# The fused kernel's launches on the serving paths, one per forward:
+# (name, C, H, W, emit_pair); images, flow and mask bf16, N = BATCH.
+BLEND_LAUNCHES = [
+    ("v4.25 final level, blend only", 3, 768, 1280, False),
+    ("rife final level, with the pair", 3, 736, 1280, True),
+]
+AB_ROUNDS, AB_REQUESTS = 10, 5
 # One bf16 training step at batch 16 on 224x224 crops: 8 warps, each a
 # batch-concatenated pair (N = 32) of bf16 planes, each with a backward
 # launch.  The teacher's flow is f32 (ifnet.py sums it in f32); the
@@ -213,51 +248,56 @@ def dtypes_label(img, flow) -> str:
     return name(img) if img.dtype == flow.dtype else f"{name(img)} ({name(flow)} flow)"
 
 
+def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
+    """The warp kernel against its plain version at one launch shape of a
+    serving path (bf16 image and flow; signed, larger values for feature
+    channels), timed beside its bound, the plain version and F.grid_sample.
+    `counts` (launches per forward of a path) go into the record."""
+    amp = 8.0 * w / 1280
+    img = torch.rand(n, c, h, w, device=dev, generator=gen).to(torch.bfloat16)
+    if c > 3:  # context or encoder features: signed, larger
+        img = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(torch.bfloat16)
+    flow = smooth_flow(n, h, w, amp, gen, dev, torch.bfloat16)
+    err = check_fwd(warp_mod, img, flow, f"{name} {tuple(img.shape)} bf16")
+    nbytes = 2 * img.numel() * img.element_size() + flow.numel() * flow.element_size()
+    flops = 9 * img.numel()  # 6 multiplies, 3 adds per output element
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    copies = max(1, math.ceil(160e6 / nbytes))
+    inputs = [(img.clone(), flow.clone()) for _ in range(copies)]
+    ms = device_ms(warp_mod.warp_planes, inputs)
+    plain_ms = device_ms(warp_mod.warp_planes_ref, inputs)
+    lib_inputs = [(a.float(), grid_for(f)) for a, f in inputs]
+    lib = lambda a, g: F.grid_sample(a, g, mode="bilinear",  # noqa: E731
+                                     padding_mode="border", align_corners=True)
+    lib_err = float((lib(*lib_inputs[0]) - warp_mod.warp_planes_ref(
+        img.float(), flow)).abs().max())
+    library_ms = device_ms(lib, lib_inputs)
+    log(f"  {name}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"grid_sample(f32) {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.1f} us "
+        f"({nbytes / 1e6:.1f} MB) -> {bound_s * 1e3 / ms:.1%} of the bound")
+    return {"launch": name, "img": [n, c, h, w], "dtype": "bf16", **counts,
+            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+            else "operations",
+            "max_abs_err": err, "grid_sample_f32_max_abs_vs_plain": lib_err}
+
+
 def check_and_time_kernel(warp_mod, dev):
-    """Phase 3: returns the per-shape records and the largest error."""
+    """Phase 3, the warp kernel: returns the per-shape records of the paper
+    model's serving launches and the largest error."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    records, worst = [], 0.0
+    records = [time_fwd_launch(warp_mod, dev, gen, name, 2 * BATCH, c, h, w,
+                               launches_per_forward=count)
+               for name, c, h, w, count in MAIN_PATH_WARPS]
+    worst = max(r["max_abs_err"] for r in records)
 
     def compare(img, flow, label):
         nonlocal worst
         e = check_fwd(warp_mod, img, flow, label)
         worst = max(worst, e)
         return e
-
-    for name, c, h, w, count in MAIN_PATH_WARPS:
-        n = 2 * BATCH
-        amp = 8.0 * w / 1280
-        img = torch.rand(n, c, h, w, device=dev, generator=gen).to(torch.bfloat16)
-        if c > 3:  # context features: signed, larger
-            img = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(torch.bfloat16)
-        flow = smooth_flow(n, h, w, amp, gen, dev, torch.bfloat16)
-        err = compare(img, flow, f"{name} {tuple(img.shape)} bf16")
-        nbytes = 2 * img.numel() * img.element_size() + flow.numel() * flow.element_size()
-        flops = 9 * img.numel()  # 6 multiplies, 3 adds per output element
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
-        copies = max(1, math.ceil(160e6 / nbytes))
-        inputs = [(img.clone(), flow.clone()) for _ in range(copies)]
-        ms = device_ms(warp_mod.warp_planes, inputs)
-        plain_ms = device_ms(warp_mod.warp_planes_ref, inputs)
-        lib_inputs = [(a.float(), grid_for(f)) for a, f in inputs]
-        lib = lambda a, g: F.grid_sample(a, g, mode="bilinear",  # noqa: E731
-                                         padding_mode="border", align_corners=True)
-        lib_err = float((lib(*lib_inputs[0]) - warp_mod.warp_planes_ref(
-            img.float(), flow)).abs().max())
-        library_ms = device_ms(lib, lib_inputs)
-        rec = {"launch": name, "img": [n, c, h, w], "dtype": "bf16",
-               "launches_per_forward": count, "bytes": nbytes,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_s * 1e3,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-               else "operations",
-               "max_abs_err": err, "grid_sample_f32_max_abs_vs_plain": lib_err}
-        records.append(rec)
-        log(f"  {name}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-            f"grid_sample(f32) {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.1f} us "
-            f"({nbytes / 1e6:.1f} MB) -> {bound_s * 1e3 / ms:.1%} of the bound")
-        del inputs, lib_inputs
 
     n, h, w = 2 * BATCH, 368, 640
     img32 = torch.rand(n, 3, h, w, device=dev, generator=gen)
@@ -267,6 +307,136 @@ def check_and_time_kernel(warp_mod, dev):
     for dtype in (torch.bfloat16, torch.float32):
         compare(big.to(dtype), block_flow(n, 736, 1280, gen, dev, dtype),
                 f"+-200 px 8x8-block flow {tuple(big.shape)} {dtype}")
+    return records, worst
+
+
+def ulp(v: torch.Tensor, dtype) -> torch.Tensor:
+    """One ulp of `dtype` (bf16 or f32) at |v|."""
+    mag = v.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - (7 if dtype == torch.bfloat16 else 23))
+
+
+def fused(warp_mod, a, b, flow, mask, need_pair):
+    """warp2_blend_planes through the fused kernel."""
+    with warp_mod.use_fuse_blend(True):
+        return warp_mod.warp2_blend_planes(a, b, flow, mask, need_pair)
+
+
+def check_blend(warp_mod, a, b, flow, mask, need_pair, label) -> float:
+    """The fused kernel against its plain version on one input: w0 and w1
+    bit-equal (K1's taps and blend), the blend within one ulp of the
+    images' dtype at the magnitude of its terms (the last f32 bit of the
+    sigmoid may move one rounding).  Returns the blend's largest error."""
+    got = fused(warp_mod, a, b, flow, mask, need_pair)
+    want = warp_mod.warp2_blend_planes_ref(a, b, flow, mask, True)
+    torch.cuda.synchronize()
+    got = got if need_pair else (got,)
+    if any(g.dtype != a.dtype for g in got):
+        raise AssertionError(f"{label}: outputs {[g.dtype for g in got]}")
+    pair_ok = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    err = (got[0].float() - want[0].float()).abs()
+    terms = torch.maximum(want[1].float().abs(), want[2].float().abs())
+    ok = pair_ok and bool((err <= ulp(terms, a.dtype)).all())
+    differ = int((got[0] != want[0]).sum())
+    e = float(err.max())
+    log(f"  {label}: max |blend - plain| = {e:.3g} (1 ulp of its terms), "
+        f"{differ} of {got[0].numel()} elements differ; "
+        f"{'w0, w1 bit-equal; ' if need_pair else ''}{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused kernel disagrees with its plain version: {label}")
+    return e
+
+
+def blend_inputs(n, c, h, w, gen, dev, dtype, side_dtype, flow_kind="smooth"):
+    a, b = (torch.rand(n, c, h, w, device=dev, generator=gen).to(dtype) for _ in range(2))
+    if flow_kind == "smooth":
+        amp = 8.0 * w / 1280
+        flow = torch.cat([smooth_flow(n, h, w, amp, gen, dev, side_dtype),
+                          smooth_flow(n, h, w, amp, gen, dev, side_dtype)], 1)
+    else:
+        flow = torch.cat([block_flow(n, h, w, gen, dev, side_dtype),
+                          block_flow(n, h, w, gen, dev, side_dtype)], 1)
+    mask = (torch.randn(n, 1, h, w, device=dev, generator=gen) * 3).to(side_dtype)
+    return a, b, flow.contiguous(), mask
+
+
+def check_and_time_blend(warp_mod, dev):
+    """Phase 3, the fused kernel: against its plain version at its two
+    serving launches (bf16), in f32 and with the +-200 px block flow; at
+    the two launches its time beside its bytes bound, the plain version's,
+    the composed route's (a warp launch and torch's blend) and the library
+    route's (F.grid_sample over the pair in f32, then torch.sigmoid and
+    torch.lerp: three calls), and the other form's at the same shape.
+    Returns the records and the largest error."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    records, worst = [], 0.0
+    for name, c, h, w, need_pair in BLEND_LAUNCHES:
+        n = BATCH
+        a, b, flow, mask = blend_inputs(n, c, h, w, gen, dev, torch.bfloat16,
+                                        torch.bfloat16)
+        err = check_blend(warp_mod, a, b, flow, mask, need_pair,
+                          f"{name} {tuple(a.shape)} bf16")
+        worst = max(worst, err)
+        esz = a.element_size()
+        nbytes = ((2 + (3 if need_pair else 1)) * a.numel() * esz
+                  + flow.numel() * flow.element_size() + mask.numel() * mask.element_size())
+        # Per output element: two bilinear blends (9 flops each) and the
+        # mask blend (3); per pixel: two coordinates and the sigmoid (~30).
+        flops = 21 * a.numel() + 30 * n * h * w
+        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+        copies = max(1, math.ceil(160e6 / nbytes))
+        inputs = [(a.clone(), b.clone(), flow.clone(), mask.clone(), need_pair)
+                  for _ in range(copies)]
+        ms = device_ms(lambda *x: fused(warp_mod, *x), inputs)
+        # The other form at the same shape: how much of the difference
+        # between the two launches is the form.
+        other_ms = device_ms(lambda *x: fused(warp_mod, *x[:4], not need_pair), inputs)
+        plain_ms = device_ms(warp_mod.warp2_blend_planes_ref, inputs)
+        composed_ms = device_ms(lambda *x: warp_mod.warp2_blend_composed(*x[:4]), inputs)
+        lib_inputs = [(torch.cat([x[0], x[1]], 0).float(),
+                       grid_for(torch.cat([x[2][:, 0:2], x[2][:, 2:4]], 0)), x[3].float())
+                      for x in inputs]
+
+        def lib(pair, grid, m, n=n):
+            wp = F.grid_sample(pair, grid, mode="bilinear", padding_mode="border",
+                               align_corners=True)
+            return torch.lerp(wp[n:], wp[:n], torch.sigmoid(m))
+
+        lib_err = float((lib(*lib_inputs[0]) - warp_mod.warp2_blend_planes_ref(
+            a.float(), b.float(), flow, mask, False)).abs().max())
+        library_ms = device_ms(lib, lib_inputs)
+        records.append({
+            "launch": name, "img": [n, c, h, w], "dtype": "bf16", "flow_dtype": "bf16",
+            "mask_dtype": "bf16", "emit_pair": need_pair, "launches_per_forward": 1,
+            "bytes": nbytes, "ms": ms, "other_form_ms": other_ms,
+            "plain_ms": plain_ms, "composed_ms": composed_ms,
+            "library_ms": library_ms, "library": "F.grid_sample f32 + sigmoid + lerp",
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+            else "operations",
+            "max_abs_err": err, "library_f32_max_abs_vs_plain": lib_err})
+        log(f"  {name}: kernel {ms * 1e3:.1f} us (the "
+            f"{'blend-only' if need_pair else 'pair'} form {other_ms * 1e3:.1f} us), "
+            f"plain {plain_ms * 1e3:.1f} us, "
+            f"composed {composed_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, "
+            f"bound {bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
+            f"{bound_s * 1e3 / ms:.1%} of the bound")
+        del inputs, lib_inputs
+    for name, c, h, w, need_pair in BLEND_LAUNCHES:
+        x = blend_inputs(BATCH, c, h, w, gen, dev, torch.float32, torch.float32)
+        worst = max(worst, check_blend(warp_mod, *x, need_pair, f"{name} f32"))
+    for dtype in (torch.bfloat16, torch.float32):
+        for need_pair in (True, False):
+            x = blend_inputs(BATCH, 3, 736, 1280, gen, dev, dtype, dtype, "blocks")
+            worst = max(worst, check_blend(
+                warp_mod, *x, need_pair,
+                f"+-200 px 8x8-block flow {tuple(x[0].shape)} {dtype} "
+                f"{'pair' if need_pair else 'blend only'}"))
+    # The paper model's serving path passes an f32 image pair nowhere, but
+    # the dtypes are independent: one mixed case (bf16 image, f32 flow and mask).
+    x = blend_inputs(BATCH, 3, 736, 1280, gen, dev, torch.bfloat16, torch.float32)
+    worst = max(worst, check_blend(warp_mod, *x, True, "bf16 image, f32 flow and mask"))
     return records, worst
 
 
@@ -391,6 +561,48 @@ def psnr(a, b) -> float:
     return 10 * math.log10(1.0 / max(mse, 1e-20))
 
 
+def reset_counts(warp_mod):
+    warp_mod.warp_planes.launches = warp_mod.warp_planes_bwd.launches = 0
+    warp_mod.warp2_blend_planes.launches = 0
+
+
+def read_counts(warp_mod) -> dict:
+    return {"warp_planes": warp_mod.warp_planes.launches,
+            "warp_planes_bwd": warp_mod.warp_planes_bwd.launches,
+            "warp_blend": warp_mod.warp2_blend_planes.launches}
+
+
+def serve(eng, a, b, requests, warp_mod, timestep=0.5):
+    """`requests` requests on the card, counted from 0 -> (ms/request on
+    the host clock, launch counts, the last output)."""
+    reset_counts(warp_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        out = eng.interpolate(a, b, timestep)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / requests * 1e3, read_counts(warp_mod), out
+
+
+def check_counts(counts, requests, k1, k2, label):
+    want = {"warp_planes": k1 * requests, "warp_planes_bwd": 0,
+            "warp_blend": k2 * requests}
+    if counts != want:
+        raise AssertionError(f"{label}: expected launches {want}, counted {counts}")
+
+
+def check_frame(out, shape, label):
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype}")
+    if not bool(torch.isfinite(out).all()) or float(out.min()) < 0 or float(out.max()) > 1:
+        raise AssertionError(f"{label}: output not finite or outside [0, 1]")
+
+
+def final_launches(warp_mod) -> tuple[int, int]:
+    """(warp, fused) launches of the final level under the switch's value."""
+    return (0, 1) if warp_mod._FUSE_BLEND.get() else (1, 0)
+
+
 def main_path(dev, warp_mod):
     from rife_tpu_torch.engine import (InferenceEngine, load_checkpoint,
                                        state_dict_from_jax)
@@ -412,25 +624,12 @@ def main_path(dev, warp_mod):
     log(f"  warm-up request: {time.perf_counter() - t0:.2f} s")
 
     requests = 3
-    warp_mod.warp_planes.launches = warp_mod.warp_planes_bwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(requests):
-        out = eng.interpolate(a, b)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / requests
-    launches = warp_mod.warp_planes.launches
-    bwd_launches = warp_mod.warp_planes_bwd.launches
-    log(f"  {requests} requests: {dt * 1e3:.2f} ms/request, "
-        f"{BATCH / dt:.2f} interpolated frames/s; warp launches {launches}")
-    if launches != LAUNCHES_PER_FORWARD * requests or bwd_launches:
-        raise AssertionError(f"expected {LAUNCHES_PER_FORWARD * requests} kernel "
-                             f"launches and no backward, counted {launches} and "
-                             f"{bwd_launches}")
-    if tuple(out.shape) != tuple(a.shape) or out.dtype != torch.bfloat16:
-        raise AssertionError(f"output {tuple(out.shape)} {out.dtype}")
-    if not bool(torch.isfinite(out).all()) or float(out.min()) < 0 or float(out.max()) > 1:
-        raise AssertionError("output not finite or outside [0, 1]")
+    ms, counts, out = serve(eng, a, b, requests, warp_mod)
+    k1_last, k2 = final_launches(warp_mod)
+    log(f"  {requests} requests: {ms:.2f} ms/request, "
+        f"{BATCH * 1e3 / ms:.2f} interpolated frames/s; launches {counts}")
+    check_counts(counts, requests, LAUNCHES_PER_FORWARD + k1_last, k2, "rife")
+    check_frame(out, a.shape, "rife")
 
     eng32 = InferenceEngine("rife", sd, compute_dtype=torch.float32, fast=1,
                             device=dev)
@@ -447,10 +646,123 @@ def main_path(dev, warp_mod):
     log(f"  f32 on the card vs the CPU path at 128x192: max |diff| = {diff:.3g} (<= 1e-3)")
     if not diff <= 1e-3:
         raise AssertionError("the card's f32 result disagrees with the CPU path")
-    return {"launches": launches, "bwd_launches": bwd_launches,
-            "ms_per_request": dt * 1e3,
-            "frames_per_s": BATCH / dt, "psnr_bf16_vs_f32_db": quality,
-            "f32_card_vs_cpu_max_abs": diff}
+    rec = {"launches": counts, "ms_per_request": ms,
+           "frames_per_s": BATCH * 1e3 / ms, "psnr_bf16_vs_f32_db": quality,
+           "f32_card_vs_cpu_max_abs": diff}
+    return rec, {"eng": eng, "a": a, "b": b, "pad": pad, "out32": out32}
+
+
+def v425_path(dev, warp_mod, gen):
+    """Phase 5: v4.25 serving at rungs 1 and 0 (see the module docstring),
+    and the warp kernel at v4.25's launch shapes.  Returns the records and
+    what the A/B needs."""
+    from rife_tpu_torch.engine import (InferenceEngine, load_checkpoint,
+                                       state_dict_from_jax)
+    from rife_tpu_torch.ops import pad_to_multiple
+
+    t0 = time.perf_counter()
+    name, tree = load_checkpoint(CKPT_V425)
+    if name != "v4.25":
+        raise AssertionError(f"{CKPT_V425} holds {name!r}")
+    sd = state_dict_from_jax(tree)
+    a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
+    a, pad = pad_to_multiple(torch.from_numpy(a), V425_PAD)
+    b, _ = pad_to_multiple(torch.from_numpy(b), V425_PAD)
+    a, b = a.to(dev), b.to(dev)
+    log(f"  weights ({name}) and a {tuple(a.shape)} pair ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    k1_last, k2 = final_launches(warp_mod)
+    rec, keep, requests = {}, {}, 3
+    for rung in (1, 0):
+        eng = InferenceEngine("v4.25", sd, compute_dtype=torch.bfloat16, fast=rung,
+                              device=dev)
+        eng.warmup(tuple(a.shape))
+        ms, counts, out = serve(eng, a, b, requests, warp_mod)
+        log(f"  rung {rung}, {requests} requests: {ms:.2f} ms/request, "
+            f"{BATCH * 1e3 / ms:.2f} interpolated frames/s; launches {counts}")
+        check_counts(counts, requests, 4 + k1_last, k2, f"v4.25 rung {rung}")
+        check_frame(out, a.shape, f"v4.25 rung {rung}")
+        out32 = InferenceEngine("v4.25", sd, compute_dtype=torch.float32, fast=rung,
+                                device=dev).interpolate(a, b)
+        quality = psnr(pad.crop(out).float(), pad.crop(out32))
+        log(f"  rung {rung}: bf16 vs the port's own f32 (TF32 off): {quality:.2f} dB "
+            f"PSNR (>= 40)")
+        if not quality >= 40.0:
+            raise AssertionError(f"v4.25 rung {rung}: bf16 at {quality:.2f} dB")
+        rec[f"rung{rung}"] = {"launches": counts, "ms_per_request": ms,
+                              "frames_per_s": BATCH * 1e3 / ms,
+                              "psnr_bf16_vs_f32_db": quality}
+        if rung == 1:
+            out25 = eng.interpolate(a, b, 0.25)
+            moved = float((out25.float() - out.float()).abs().mean())
+            log(f"  timestep 0.25 vs 0.5: mean |diff| = {moved:.4g} (> 0)")
+            if not moved > 0:
+                raise AssertionError("the timestep does not reach the model")
+            rec["timestep_0.25_vs_0.5_mean_abs"] = moved
+            keep = {"eng": eng, "a": a, "b": b, "pad": pad, "out32": out32}
+        del eng, out32
+
+    sa, sb = smooth_pair(2, 128, 192, 6, seed=12)
+    on_card = InferenceEngine("v4.25", sd, fast=1, device=dev).interpolate(sa, sb, 0.25)
+    on_cpu = InferenceEngine("v4.25", sd, fast=1, device="cpu").interpolate(sa, sb, 0.25)
+    diff = float((on_card.cpu() - on_cpu).abs().max())
+    log(f"  f32 on the card vs the CPU path at 128x192: max |diff| = {diff:.3g} (<= 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError("the card's v4.25 f32 result disagrees with the CPU path")
+    rec["f32_card_vs_cpu_max_abs"] = diff
+    records = [time_fwd_launch(warp_mod, dev, gen, f"v4.25 {name_}", 2 * BATCH, c, h, w,
+                               launches_per_rung1_forward=r1, launches_per_rung0_forward=r0)
+               for name_, c, h, w, r1, r0 in V425_WARPS]
+    return rec, records, keep
+
+
+def ab_path(warp_mod, paths):
+    """Phase 6: each model's rung-1 request with the final level fused and
+    composed, interleaved (F C C F ...), AB_ROUNDS x AB_REQUESTS requests
+    a side, device time by CUDA events; both sides' PSNR against the f32
+    output.  The fused paper-model request must make 6 warp launches and
+    one fused one."""
+    rec = {}
+    for model, p in paths.items():
+        times = {True: [], False: []}
+        quality = {}
+        for r in range(AB_ROUNDS):
+            for fuse in ((True, False) if r % 2 == 0 else (False, True)):
+                with warp_mod.use_fuse_blend(fuse):
+                    reset_counts(warp_mod)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(AB_REQUESTS):
+                        out = p["eng"].interpolate(p["a"], p["b"])
+                    end.record()
+                    end.synchronize()
+                    times[fuse].append(start.elapsed_time(end) / AB_REQUESTS)
+                    counts = read_counts(warp_mod)
+                k1 = {"rife": LAUNCHES_PER_FORWARD, "v4.25": 4}[model] + (0 if fuse else 1)
+                check_counts(counts, AB_REQUESTS, k1, 1 if fuse else 0,
+                             f"A/B {model} fused={fuse}")
+                if r == 0:
+                    quality[fuse] = psnr(p["pad"].crop(out).float(), p["pad"].crop(p["out32"]))
+                    if not quality[fuse] >= 40.0:
+                        raise AssertionError(f"A/B {model} fused={fuse}: "
+                                             f"{quality[fuse]:.2f} dB")
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        winner = "fused" if med[True] < med[False] else "composed"
+        log(f"  {model} rung 1: fused {med[True]:.3f} ms/request (median; "
+            f"{', '.join(f'{t:.3f}' for t in times[True])}), composed "
+            f"{med[False]:.3f} ({', '.join(f'{t:.3f}' for t in times[False])}); "
+            f"PSNR vs f32 fused {quality[True]:.2f} dB, composed {quality[False]:.2f} dB;"
+            f" faster: {winner}")
+        rec[model] = {"fused_ms": times[True], "composed_ms": times[False],
+                      "fused_median_ms": med[True], "composed_median_ms": med[False],
+                      "psnr_fused_db": quality[True], "psnr_composed_db": quality[False],
+                      "faster": winner}
+    default = "fused" if warp_mod._FUSE_BLEND.get() else "composed"
+    log(f"  use_fuse_blend default: {default}")
+    rec["default"] = default
+    return rec
 
 
 def _grads(model) -> dict:
@@ -546,13 +858,16 @@ def train_path(dev, warp_mod, cuda_warp):
             raise AssertionError(f"the step's {kind} launches {seen[kind]} are not "
                                  f"the checked {want[kind]}")
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
-    warp_mod.warp_planes.launches = warp_mod.warp_planes_bwd.launches = 0
+    reset_counts(warp_mod)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [train_step(state, b, torch.bfloat16)["loss"] for b in batches[1:]]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
     fwd, bwd = warp_mod.warp_planes.launches, warp_mod.warp_planes_bwd.launches
+    if warp_mod.warp2_blend_planes.launches:
+        raise AssertionError("training launched the fused warp + blend kernel; "
+                             "the final level trains through the composed ops")
     losses = [float(x) for x in losses]
     log(f"  {TRAIN_TIMED_STEPS} bf16 steps: {dt * 1e3:.2f} ms/step, "
         f"{TRAIN_BATCH / dt:.2f} samples/s; warp launches {fwd} forward, "
@@ -567,7 +882,7 @@ def train_path(dev, warp_mod, cuda_warp):
     if still:
         raise AssertionError(f"{len(still)} parameters did not move, e.g. {still[:3]}")
     rec.update(ms_per_step=dt * 1e3, samples_per_s=TRAIN_BATCH / dt,
-               fwd_launches=fwd, bwd_launches=bwd, losses=losses)
+               launches=read_counts(warp_mod), losses=losses)
     del before
 
     prof = device_breakdown(lambda: train_step(state, batches[1], torch.bfloat16),
@@ -662,6 +977,7 @@ def main() -> int:
     from rife_tpu_torch.ops import warp as warp_mod
     from rife_tpu_torch.ops.cuda import _build
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
+    from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
 
     dev = torch.device("cuda", 0)
     with Phase("device"):
@@ -672,8 +988,9 @@ def main() -> int:
 
     with Phase("build"):
         t0 = time.perf_counter()
-        built = _build.build_all(cuda_warp.SOURCES)  # one nvcc each, in parallel
-        log(f"  both sources built in {time.perf_counter() - t0:.2f} s")
+        # One nvcc each, all started together.
+        built = _build.build_all(cuda_warp.SOURCES + cuda_blend.SOURCES)
+        log(f"  {len(built)} sources built in {time.perf_counter() - t0:.2f} s")
         for b in built.values():
             log(f"  nvcc: {b.seconds:.2f} s -> {os.path.relpath(b.path, ROOT)}")
             for line in b.ptxas_log.splitlines():
@@ -681,45 +998,79 @@ def main() -> int:
                     log(f"  ptxas: {line.strip()}")
         cuda_warp.library()
         cuda_warp.library_bwd()
+        cuda_blend.library()
 
     with Phase("kernels"):
         records, worst = check_and_time_kernel(warp_mod, dev)
+        blend_records, blend_worst = check_and_time_blend(warp_mod, dev)
 
     with Phase("main path"):
-        main = main_path(dev, warp_mod)
+        main, rife_keep = main_path(dev, warp_mod)
+
+    with Phase("v4.25"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        v425, v425_records, v425_keep = v425_path(dev, warp_mod, gen)
+        worst = max([worst] + [r["max_abs_err"] for r in v425_records])
+
+    with Phase("A/B"):
+        ab = ab_path(warp_mod, {"rife": rife_keep, "v4.25": v425_keep})
+        del rife_keep, v425_keep
+        torch.cuda.empty_cache()
 
     with Phase("train"):
         bwd_records, bwd_worst, fwd_worst_train = check_and_time_bwd_kernel(warp_mod, dev)
         train = train_path(dev, warp_mod, cuda_warp)
 
-    per_fwd = lambda key: sum(r[key] * r["launches_per_forward"]  # noqa: E731
-                              for r in records)
+    per_fwd = lambda recs, key, n="launches_per_forward": sum(  # noqa: E731
+        r[key] * r[n] for r in recs)
     per_step = lambda key: sum(r[key] * r["launches_per_step"]  # noqa: E731
                                for r in bwd_records)
     bound_by = lambda recs: ("bytes" if all(r["bound_by"] == "bytes"  # noqa: E731
                                             for r in recs) else "operations")
+    by_path = lambda k: {"serve rife": main["launches"][k],  # noqa: E731
+                         "serve v4.25 rung 1": v425["rung1"]["launches"][k],
+                         "serve v4.25 rung 0": v425["rung0"]["launches"][k],
+                         "train": train["launches"][k]}
+    v425_blend = blend_records[0]
     log(json.dumps({"kernels": [{
         "name": "warp_planes", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_planes.cu",
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
-        "launches": main["launches"] + train["fwd_launches"],
-        "launches_by_path": {"serve": main["launches"], "train": train["fwd_launches"]},
+        "launches": sum(by_path("warp_planes").values()),
+        "launches_by_path": by_path("warp_planes"),
         "max_abs_err": max(worst, fwd_worst_train),
-        "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_ms"), "bound_by": bound_by(records),
-        "library_ms": per_fwd("library_ms"), "times_are": "per serving forward",
-        "per_launch": records, "main_path": main, "card": smi}, {
+        "ms": per_fwd(records, "ms"), "plain_ms": per_fwd(records, "plain_ms"),
+        "bound_ms": per_fwd(records, "bound_ms"), "bound_by": bound_by(records),
+        "library_ms": per_fwd(records, "library_ms"),
+        "times_are": "per rife serving forward (rung 1: 6 launches, the final "
+                     "level fused)",
+        "v425_rung1_forward": {k: per_fwd(v425_records, k, "launches_per_rung1_forward")
+                               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "per_launch": records + v425_records, "main_path": main, "v425_path": v425,
+        "card": smi}, {
         "name": "warp_planes_bwd", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_planes_bwd.cu",
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
         "replaces_also": "rife_tpu/ops/warp.py:274 (_planes_diff_bwd)",
-        "launches": train["bwd_launches"],
-        "launches_by_path": {"serve": main["bwd_launches"], "train": train["bwd_launches"]},
+        "launches": sum(by_path("warp_planes_bwd").values()),
+        "launches_by_path": by_path("warp_planes_bwd"),
         "max_abs_err": bwd_worst,
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"), "bound_by": bound_by(bwd_records),
         "library_ms": per_step("library_ms"), "times_are": "per training step",
-        "per_launch": bwd_records, "train_path": train, "card": smi}]}))
+        "per_launch": bwd_records, "train_path": train, "card": smi}, {
+        "name": "warp_blend", "route": "cuda",
+        "source": "rife_tpu_torch/csrc/warp_blend.cu",
+        "replaces": "rife_tpu/ops/pallas/warp_blend.py:215",
+        "launches": sum(by_path("warp_blend").values()),
+        "launches_by_path": by_path("warp_blend"),
+        "max_abs_err": blend_worst,
+        "ms": v425_blend["ms"], "plain_ms": v425_blend["plain_ms"],
+        "bound_ms": v425_blend["bound_ms"], "bound_by": v425_blend["bound_by"],
+        "library_ms": v425_blend["library_ms"],
+        "times_are": "per v4.25 forward (one blend-only launch)",
+        "per_launch": blend_records, "ab": ab, "card": smi}]}))
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {TOTAL_BUDGET_S} s)")
     if total > TOTAL_BUDGET_S:

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one NVIDIA card.
+"""Where the time of a serving request of the port goes, on one NVIDIA card.
 
-    python3 profile_torch.py [--requests 10]
+    python3 profile_torch.py [--model rife|v4.25] [--rung 1] [--requests 10]
 
-Serves the chip_smoke.py workload (InferenceEngine("rife", fast=1, bf16),
-r5 weights, 4 pairs of 720p content padded to 736x1280, inputs already on
-the card) and prints:
+Serves the chip_smoke.py workload (bf16, 4 pairs of 720p content, inputs
+already on the card): `rife` with the r5 weights padded to 736x1280, or
+`v4.25` with the in-repo v4.25 weights padded to 768x1280; rung 1 by
+default.  Prints:
 
 - request time from CUDA events (device) and from the host clock, with
   cudnn.benchmark off (the port's setting) and on;
 - a torch.profiler breakdown of the device time of 3 requests by kernel
-  and by class (the CUDA warp kernel, convolutions, everything else), and
-  the share of the window in which the device ran no kernel.
+  and by class (the hand-written CUDA kernels, convolutions, everything
+  else), and the share of the window in which the device ran no kernel.
 
 Exits non-zero without a card.  Writes nothing.
 """
@@ -25,7 +26,8 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import BATCH, CKPT, FRAME_H, FRAME_W, PAN, smooth_pair
+from chip_smoke import (BATCH, CKPT, CKPT_V425, FRAME_H, FRAME_W, PAN, V425_PAD,
+                        smooth_pair)
 
 _CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "gemm", "dgrad", "wgrad",
                "sm90_", "cutlass")
@@ -35,6 +37,8 @@ def classify(name: str) -> str:
     low = name.lower()
     if "warp_planes_kernel" in low:
         return "warp kernel (CUDA, hand-written)"
+    if "warp_blend_kernel" in low:
+        return "fused warp + blend kernel (CUDA, hand-written)"
     if any(m in low for m in _CONV_MARKS):
         return "convolutions (cuDNN)"
     return "other (elementwise, concat, resizes, copies)"
@@ -55,6 +59,8 @@ def request_ms(eng, a, b, n):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("rife", "v4.25"), default="rife")
+    ap.add_argument("--rung", type=int, default=1)
     ap.add_argument("--requests", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -70,11 +76,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
-    sd = state_dict_from_jax(load_checkpoint(CKPT)[1])
+    ckpt, pad = (CKPT, 32) if args.model == "rife" else (CKPT_V425, V425_PAD)
+    sd = state_dict_from_jax(load_checkpoint(ckpt)[1])
     a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
-    a = pad_to_multiple(torch.from_numpy(a), 32)[0].cuda()
-    b = pad_to_multiple(torch.from_numpy(b), 32)[0].cuda()
-    eng = InferenceEngine("rife", sd, compute_dtype=torch.bfloat16, fast=1)
+    a = pad_to_multiple(torch.from_numpy(a), pad)[0].cuda()
+    b = pad_to_multiple(torch.from_numpy(b), pad)[0].cuda()
+    eng = InferenceEngine(args.model, sd, compute_dtype=torch.bfloat16, fast=args.rung)
+    print(f"{args.model} rung {args.rung}, {tuple(a.shape)} bf16", flush=True)
 
     for bench in (False, True):
         torch.backends.cudnn.benchmark = bench

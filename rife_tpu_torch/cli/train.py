@@ -12,13 +12,17 @@ count, as in the reference: the cosine ends at step N and training stops
 there, so the second example resumes the r5 run (step 16000) for 50
 steps near its final lr; a horizon at or below the resumed step trains
 one step at the peak lr.  Logs the scalars of step 1 and of every 200th
-step, and validation PSNR every `--val_interval` epochs, to
+step (with the lr the schedule gives that step, as the reference logs
+it), and validation PSNR every `--val_interval` epochs, to
 {log_dir}/metrics.jsonl (and TensorBoard when it imports); saves
 {log_dir}/flownet.rtpu (params, AdamW state, step: the reference
 trainer's format, resumable by either trainer) every epoch and, unlike
-the reference, also when the run stops.
+the reference, also when the run stops.  Batches are loaded on
+`--workers` threads and assembled `--prefetch` batches ahead, as in the
+reference; `--warp_impl` is accepted and every value takes the port's
+kernels.
 
-Not ported yet, and refused: models other than `rife` (ROADMAP A8, A16),
+Not ported yet, and refused: models other than `rife` (ROADMAP A13, A16),
 `--septuplet` (A13), `--vis_interval > 0` (image panels, A13) and
 `--steps_per_call > 1` (the reference's chained steps hide a TPU
 runtime's dispatch cost; A13 records why they are not ported).
@@ -65,6 +69,16 @@ def parse_args(argv=None):
     ap.add_argument("--resume", type=str, default=None,
                     help="a training checkpoint (.rtpu) of either trainer")
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--workers", type=int, default=8,
+                    help="loader threads per batch (0 = on the step's thread)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches assembled ahead on a background thread "
+                         "(0 = synchronous)")
+    ap.add_argument("--warp_impl", type=str, default="auto",
+                    choices=["auto", "xla", "pallas"],
+                    help="accepted for the reference's command lines: every "
+                         "value takes the port's warp kernels, which are exact "
+                         "for every flow (the plain versions on the CPU)")
     ap.add_argument("--dtype", type=str, default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--steps_per_call", type=int, default=1,
                     help="only 1: chained steps are not ported (ROADMAP A13)")
@@ -79,7 +93,7 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.model != "rife":
         raise NotImplementedError(f"--model {args.model}: training is ported for "
-                                  f"rife only (ROADMAP.md, queue A items 8 and 16)")
+                                  f"rife only (ROADMAP.md, queue A items 13 and 16)")
     if args.septuplet:
         raise NotImplementedError("--septuplet is not ported yet (ROADMAP.md, "
                                   "queue A item 13)")
@@ -141,16 +155,21 @@ def main(argv=None):
 
     logger = MetricLogger(args.log_dir)
     step = state.step
+    batches = batch_iterator(train_ds, args.batch_size, seed=args.seed,
+                             crop=args.crop, workers=args.workers,
+                             prefetch=args.prefetch)
     t0 = time.perf_counter()
     try:
-        for batch in batch_iterator(train_ds, args.batch_size, seed=args.seed,
-                                    crop=args.crop):
+        for batch in batches:
             t1 = time.perf_counter()
             metrics = train_step(state, batch, dtype)
             step_before, step = step, step + 1
             if step % 200 == 0 or step == 1:
                 m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                m.update(step=step, t_data=round(t1 - t0, 4),
+                # The reference logs the schedule at the step just finished,
+                # not the lr its update used (schedule(step - 1)).
+                m.update(step=step, lr=float(state.schedule(step)),
+                         t_data=round(t1 - t0, 4),
                          t_train=round(time.perf_counter() - t1, 4))
                 logger.log("train", step, m)
                 print(json.dumps(m), flush=True)
@@ -169,6 +188,7 @@ def main(argv=None):
                 break
             t0 = time.perf_counter()
     finally:
+        batches.close()  # stops the prefetch thread and the loader pool
         logger.close()
     print(f"training done at step {step}")
 

@@ -23,23 +23,12 @@
 // many-channel context levels.  No window, so the warp is exact for every
 // flow, and any H and W.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_taps.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int CH_PER_THREAD = 16;
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <typename T, typename F>
 __global__ void __launch_bounds__(THREADS)
@@ -55,36 +44,10 @@ warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
   const int x = (int)(p - (int64_t)y * W);
 
   const F* fl = flow + (int64_t)n * 2 * hw;
-  const float ix = fminf(fmaxf((float)x + load_f(fl + p), 0.0f), (float)(W - 1));
-  const float iy = fminf(fmaxf((float)y + load_f(fl + hw + p), 0.0f), (float)(H - 1));
-  const float x0f = floorf(ix);
-  const float y0f = floorf(iy);
-  const float fx = ix - x0f;
-  const float fy = iy - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
-  const int64_t i00 = (int64_t)y0 * W + x0;
-  const int64_t i01 = (int64_t)y0 * W + x1;
-  const int64_t i10 = (int64_t)y1 * W + x0;
-  const int64_t i11 = (int64_t)y1 * W + x1;
-
-  const float gx = 1.0f - fx;
-  const float gy = 1.0f - fy;
+  const Taps t = taps_at(x, y, load_f(fl + p), load_f(fl + hw + p), H, W);
   for (int c = c_begin; c < c_end; ++c) {
     const int64_t base = ((int64_t)n * C + c) * hw;
-    const T* src = img + base;
-    // The plain version's operations in its order, each rounded on its own
-    // (the _rn intrinsics are never contracted into an FMA): the kernel
-    // then gives the plain version's f32 result bit for bit.  A contracted
-    // FMA would differ by an f32 rounding, which where the taps cancel is
-    // more than one bf16 ulp of the small result.
-    const float top = __fadd_rn(__fmul_rn(load_f(src + i00), gx),
-                                __fmul_rn(load_f(src + i01), fx));
-    const float bot = __fadd_rn(__fmul_rn(load_f(src + i10), gx),
-                                __fmul_rn(load_f(src + i11), fx));
-    store_f(out + base + p, __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy)));
+    store_f(out + base + p, bilerp(img + base, t));
   }
 }
 

@@ -36,23 +36,12 @@
 // only where d_img is needed (the context warps; the image warps of the
 // flow levels and the teacher warp raw input frames).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_taps.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int CH_PER_THREAD = 16;
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // part: (N, G, 2, H, W) f32 partial d_flow, one slab per channel run, or
 // nullptr when d_flow is not needed.  d_img: (N, C, H, W) f32 scratch, or

@@ -11,15 +11,20 @@ the port imports nothing of rife_tpu).
   frame: training and validation run without the dataset.
 - `_augment`: the reference's train augmentation (random crop, channel
   reversal, vertical and horizontal flips, temporal swap, rotation).
-- `batch_iterator`: one process, no threads; yields uint8 NHWC batches
-  (the trainer divides by 255 on the device).  Shuffling and augment
-  draws are those of the reference's iterator (per-(epoch, slot)
-  generators), so for the same seed and crop it gives the reference's
-  batches, which do not depend on its worker and prefetch settings.
+- `batch_iterator`: one process; yields uint8 NHWC batches (the trainer
+  divides by 255 on the device), optionally loaded on a thread pool
+  (`workers`) and assembled ahead on a background thread (`prefetch`),
+  as the reference's iterator does.  Shuffling and augment draws are the
+  reference's (per-(epoch, slot) generators), so for the same seed and
+  crop it gives the reference's batches, for every worker and prefetch
+  setting.
 """
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -145,30 +150,111 @@ def _augment(img0, gt, img1, timestep, rng: np.random.Generator, crop: int = 224
     return img0, gt, img1, timestep
 
 
+class _PrefetchIterator:
+    """Runs a batch generator on a daemon thread, `depth` batches ahead, so
+    that decoding and augmenting overlap the device step.  The generator's
+    exceptions reach the consumer; `close()` stops the thread."""
+
+    _DONE = object()
+
+    def __init__(self, gen, depth: int = 2):
+        self._gen = gen
+        self._done = False
+        self._q = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="rife-tpu-torch-prefetch")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            for item in self._gen:
+                if not self._put(item):
+                    return
+            self._put(self._DONE)
+        except BaseException as e:  # noqa: BLE001 - raised again in __next__
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # After DONE or an exception the producer puts nothing more.
+        if self._done:
+            raise StopIteration
+        item = self._q.get()
+        if item is self._DONE:
+            self._done = True
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._done = True
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()
+        self._done = True
+        # Join before closing the generator: closing it from here while its
+        # frame runs on the producer thread would raise ValueError.
+        self._thread.join(timeout=5.0)
+        if not self._thread.is_alive():
+            self._gen.close()
+
+
 def batch_iterator(dataset, batch_size: int, *, seed: int = 1234, crop: int = 224,
-                   epochs: int | None = None,
-                   augment: bool | None = None) -> Iterator[dict]:
+                   epochs: int | None = None, augment: bool | None = None,
+                   workers: int = 0, prefetch: int = 0) -> Iterator[dict]:
     """Yields {img0, img1, gt: (B, H, W, 3) uint8, timestep: (B,) f32}.
 
     Each epoch shuffles the indices with one generator seeded by `seed`;
     each item is augmented (by default on the train split) with its own
-    generator keyed by (seed, epoch, slot).  Drops the last partial batch."""
+    generator keyed by (seed, epoch, slot).  Drops the last partial batch.
+    workers > 0 loads and augments a batch's items on a pool of that many
+    threads; prefetch > 0 assembles batches on a background thread that
+    many ahead (a `_PrefetchIterator`; close it to stop the thread).  The
+    per-(epoch, slot) draws make the batches the same for every setting."""
+    gen = _batch_gen(dataset, batch_size, seed=seed, crop=crop, epochs=epochs,
+                     augment=augment, workers=workers)
+    return _PrefetchIterator(gen, prefetch) if prefetch > 0 else gen
+
+
+def _batch_gen(dataset, batch_size, *, seed, crop, epochs, augment, workers):
     if augment is None:
         augment = dataset.split == "train"
-    epoch = 0
-    order_rng = np.random.default_rng(seed)
-    while epochs is None or epoch < epochs:
-        idx = np.arange(len(dataset))
-        order_rng.shuffle(idx)
-        for start in range(0, len(idx) - batch_size + 1, batch_size):
-            items = []
-            for slot in range(start, start + batch_size):
+    pool = ThreadPoolExecutor(max_workers=workers,
+                              thread_name_prefix="rife-tpu-torch-loader") \
+        if workers > 0 else None
+    try:
+        epoch = 0
+        order_rng = np.random.default_rng(seed)
+        while epochs is None or epoch < epochs:
+            idx = np.arange(len(dataset))
+            order_rng.shuffle(idx)
+
+            def load_one(slot, epoch=epoch, idx=idx):
                 img0, gt, img1, t = dataset.load(int(idx[slot]))
                 if augment:
                     rng = np.random.default_rng([seed, 7919 + epoch, slot])
                     img0, gt, img1, t = _augment(img0, gt, img1, t, rng, crop)
-                items.append((img0, gt, img1, t))
-            b0, bg, b1, bt = zip(*items)
-            yield {"img0": np.stack(b0), "img1": np.stack(b1), "gt": np.stack(bg),
-                   "timestep": np.asarray(bt, np.float32)}
-        epoch += 1
+                return img0, gt, img1, t
+
+            for start in range(0, len(idx) - batch_size + 1, batch_size):
+                slots = range(start, start + batch_size)
+                items = list(pool.map(load_one, slots)) if pool \
+                    else [load_one(s) for s in slots]
+                b0, bg, b1, bt = zip(*items)
+                yield {"img0": np.stack(b0), "img1": np.stack(b1),
+                       "gt": np.stack(bg), "timestep": np.asarray(bt, np.float32)}
+            epoch += 1
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False)

@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 _MAGIC = b"RIFETPU1"
-# Transposed convs of the paper model: stored as the equivalent forward conv.
-_DECONV_PARENTS = ("lastconv", "up0.conv", "up1.conv", "up2.conv", "up3.conv")
+# Transposed convs (the paper model's block heads and U-Net decoder, v4.25's
+# block heads and encoder head): stored as the equivalent forward conv.
+_DECONV_PARENTS = ("lastconv", "up0.conv", "up1.conv", "up2.conv", "up3.conv",
+                   "encode.cnn3")
 
 
 def _unflatten(flat: dict):
@@ -105,7 +107,7 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     - conv "w" HWIO -> "weight" OIHW; "b" -> "bias";
     - transposed conv "w", stored pre-flipped as (kh, kw, I, O) -> torch's
       (I, O, kh, kw), flipped back;
-    - PReLU "alpha" (C,) unchanged."""
+    - PReLU "alpha" (C,) and v4.25's ResConv "beta" (C,) unchanged."""
     sd = {}
     for key, v in _flatten(params):
         parent, _, leaf = key.rpartition(".")

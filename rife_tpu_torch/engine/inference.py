@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import torch
 
+from rife_tpu_torch.models.ifnet import IFNetConfig
 from rife_tpu_torch.models.registry import ModelDef, get_model_def
 from rife_tpu_torch.ops import from_planes, to_planes
 
@@ -26,19 +28,35 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+_F32 = {"lock": threading.Lock(), "inside": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def full_f32():
-    """f32 convs and matmuls in full f32 (no TF32), like the reference's
-    Precision.HIGHEST; bf16 work is not affected."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """f32 convs and matmuls in full f32 (no TF32) inside, like the
+    reference's Precision.HIGHEST.
+
+    The TF32 flags are process-wide, so the entries of every thread are
+    counted together: the first turns TF32 off, the last to leave restores
+    what the first found, and no thread's exit turns TF32 back on while
+    another thread is still inside.  bf16 work neither needs nor enters
+    it."""
+    st = _F32
+    with st["lock"]:
+        if st["inside"] == 0:
+            st["saved"] = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        st["inside"] += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        with st["lock"]:
+            st["inside"] -= 1
+            if st["inside"] == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = st["saved"]
 
 
 class InferenceEngine:
@@ -47,14 +65,19 @@ class InferenceEngine:
                  fast: bool | int = False, device=None):
         """params: a state dict of the model (see
         engine.checkpoint.state_dict_from_jax).  fast: the approximation
-        rung, 0 (exact graph) or 1 (the serving default, fast_level0)."""
+        rung, as in the reference: 0 is the exact graph, 1 the serving
+        default (fast_level0).  v4.25 has nothing more to approximate, so
+        its rungs 1-4 all mean fast_level0; the paper model's rungs 2-4
+        are not ported yet."""
         self.model_def: ModelDef = get_model_def(model)
         self.model_name = model
         rung = int(fast)
-        if rung not in (0, 1):
+        if not 0 <= rung <= 4:
+            raise ValueError(f"fast rung {rung}: the rungs are 0-4")
+        if rung >= 2 and isinstance(self.model_def.config, IFNetConfig):
             raise NotImplementedError(f"fast rung {rung} is not ported yet "
                                       f"(ROADMAP.md, queue A item 4)")
-        if rung == 1:
+        if rung >= 1:
             self.model_def = dataclasses.replace(
                 self.model_def, config=dataclasses.replace(
                     self.model_def.config, fast_level0=True))
@@ -64,15 +87,16 @@ class InferenceEngine:
         self.scale_list = tuple(s / scale for s in self.model_def.scale_list)
         net = self.model_def.build(self.model_def.config)
         net.load_state_dict(params)  # strict: the checkpoint holds every key
-        net.block_tea = None  # the training-only teacher stays off the card
+        if hasattr(net, "block_tea"):
+            net.block_tea = None  # the training-only teacher stays off the card
         self.model = net.to(self.device, compute_dtype).eval()
 
     @torch.inference_mode()
-    def interpolate(self, img0, img1, timestep: float = 0.5,
+    def interpolate(self, img0, img1, timestep=0.5,
                     tta: bool = False) -> torch.Tensor:
-        """Middle frame for a padded NHWC pair in [0, 1].  `timestep` is
-        ignored: no ported model takes one (as for `rife` in the
-        reference)."""
+        """The frame at `timestep` (a float or a per-pair (N,) array) for
+        a padded NHWC pair in [0, 1].  Models without a timestep input
+        (`rife`) give the midpoint whatever it is, as in the reference."""
         if tta:
             raise NotImplementedError("the TTA flip ensemble is not ported yet "
                                       "(ROADMAP.md, queue A item 5)")
@@ -80,8 +104,13 @@ class InferenceEngine:
                       .to(self.compute_dtype))
         b = to_planes(torch.as_tensor(img1, device=self.device)
                       .to(self.compute_dtype))
-        with full_f32():
-            out = self.model(a, b, scale_list=self.scale_list)
+        kw = {}
+        if self.supports_timestep:
+            kw["timestep"] = torch.as_tensor(timestep, dtype=torch.float32,
+                                             device=self.device)
+        with (full_f32() if self.compute_dtype == torch.float32
+              else contextlib.nullcontext()):
+            out = self.model(a, b, scale_list=self.scale_list, **kw)
         return from_planes(out["merged"][-1])
 
     def interpolate_batch(self, pairs0, pairs1, timestep=0.5, tta=False):
@@ -96,7 +125,7 @@ class InferenceEngine:
 
     @property
     def supports_timestep(self) -> bool:
-        return False  # the timestep models (rife_m, v4.25) are not ported
+        return self.model_name in ("rife_m", "v4.25")
 
     def warmup(self, shape, tta: bool = False):
         """Run one pair of zeros of NHWC `shape` (cuDNN picks its kernels)."""

@@ -133,7 +133,10 @@ class IFNet(nn.Module):
                 flow, mask = flow + flow_d, mask + mask_d
             mask_list.append(torch.sigmoid(mask))
             flow_list.append(flow)
-            if i == 2:
+            if i == 2 and gt is None:
+                # Inference: the pair warp and the blend in one launch while
+                # `use_fuse_blend` is on.  Training (with gt) takes the
+                # composed pair warp and blend below, as rife_tpu does.
                 blend, w0, w1 = warp2_blend_planes(img0, img1, flow, mask)
                 merged.append(blend)
                 continue

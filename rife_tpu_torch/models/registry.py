@@ -1,7 +1,8 @@
-"""Model presets (port of rife_tpu/models/registry.py, `rife` entry).
+"""Model presets (port of rife_tpu/models/registry.py, the `rife` and
+`v4.25` entries).
 
-`rife_m`, `rife_2r`, `hd`, `hdv2` and `v4.25` are not ported yet
-(ROADMAP.md, queue A items 4, 8 and 16)."""
+`rife_m`, `rife_2r`, `hd` and `hdv2` are not ported yet (ROADMAP.md,
+queue A items 4 and 16)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,13 +10,14 @@ from dataclasses import dataclass
 import torch
 
 from rife_tpu_torch.models.ifnet import IFNet, IFNetConfig
+from rife_tpu_torch.models.v425 import V425, V425Config
 from rife_tpu_torch.nn import init_torch_default_
 
 
 @dataclass(frozen=True)
 class ModelDef:
     name: str
-    config: IFNetConfig
+    config: IFNetConfig | V425Config
     build: type
     scale_list: tuple  # per-level divisors before the /scale knob
     pad_multiple: int = 32  # spatial granularity the pyramid requires
@@ -28,6 +30,9 @@ class ModelDef:
 
 MODEL_REGISTRY: dict[str, ModelDef] = {
     "rife": ModelDef("rife", IFNetConfig(), IFNet, (4.0, 2.0, 1.0)),
+    # The scale-16 level halves twice more inside its block: pad to 64.
+    "v4.25": ModelDef("v4.25", V425Config(), V425, (16.0, 8.0, 4.0, 2.0, 1.0),
+                      pad_multiple=64),
 }
 
 

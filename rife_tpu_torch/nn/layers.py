@@ -37,6 +37,18 @@ def prelu(x, alpha):
     return torch.where(x >= 0, x, _like(alpha, x).view(1, -1, 1, 1) * x)
 
 
+def leaky_relu(x, negative_slope: float = 0.2):
+    """LeakyReLU (v4.25's activation; `nn.LeakyReLU(negative_slope)`)."""
+    return F.leaky_relu(x, negative_slope)
+
+
+def pixel_shuffle(x, r: int = 2):
+    """(N, C*r*r, H, W) -> (N, C, H*r, W*r) in torch's channel order
+    c_in = c * r^2 + dh * r + dw (`nn.PixelShuffle(r)`), which the
+    reference's NHWC `pixel_shuffle` reproduces."""
+    return F.pixel_shuffle(x, r)
+
+
 def conv_prelu(x, weight, bias, alpha, stride: int = 1):
     """The reference's conv() block: Conv2d + PReLU."""
     return prelu(conv2d(x, weight, bias, stride), alpha)

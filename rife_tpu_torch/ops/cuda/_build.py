@@ -4,9 +4,10 @@ Each `csrc/<name>.cu` exposes `extern "C"` functions and is compiled by
 hand (no `torch.utils.cpp_extension`, no ninja: a source without
 PyTorch's headers builds in seconds) into `build/rife_tpu_torch/` at the
 root of the checkout, at first use; `build_all` runs one nvcc per source
-in parallel.  The file name carries a hash of the
-source and of the nvcc command (compiler path and flags), so an edited
-source or flag rebuilds and a stale library is never loaded.  The library is written to a temporary
+in parallel.  The file name carries a hash of the source, of the shared
+headers (`csrc/*.cuh`) and of the nvcc command (compiler path and flags),
+so an edited source, header or flag rebuilds and a stale library is never
+loaded.  The library is written to a temporary
 name and moved into place with `os.replace`, so a build cut off half way
 leaves nothing that looks finished.
 """
@@ -55,7 +56,8 @@ def build(name: str) -> Built:
     """Compile `csrc/<name>.cu` (if not built yet) and return the library."""
     src = CSRC / f"{name}.cu"
     nvcc = _nvcc()
-    key = hashlib.sha256(src.read_bytes() + " ".join((nvcc,) + NVCC_FLAGS)
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join((nvcc,) + NVCC_FLAGS)
                          .encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # A `lock` left by an interrupted build tool would block a later one.

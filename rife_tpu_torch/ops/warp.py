@@ -13,12 +13,21 @@ is computed in f32 and rounded once to the image's dtype.
 tensor goes to the plain versions `warp_planes_ref` and
 `warp_planes_bwd_ref`, a CUDA tensor to the hand-written kernels
 (`ops/cuda/warp.py`), which launch or raise.
+
+`warp2_blend_planes`, the final level's pair warp and sigmoid-mask blend,
+takes the fused kernel (`ops/cuda/warp_blend.py`; plain version
+`warp2_blend_planes_ref`) while `use_fuse_blend` is on, and the composed
+pair warp plus a torch blend (`warp2_blend_composed`) while it is off.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
 from rife_tpu_torch.ops.cuda import warp as _cuda_warp
+from rife_tpu_torch.ops.cuda import warp_blend as _cuda_blend
 
 
 def to_planes(x: torch.Tensor) -> torch.Tensor:
@@ -184,14 +193,95 @@ def warp2_planes(img_a, img_b, flow_a, flow_b):
     return both[:n], both[n:]
 
 
-def warp2_blend_planes(img_a, img_b, flow, mask, need_pair: bool = True):
-    """Final-level pair warp and sigmoid-mask blend, composed.
+# On by default: the fused final level won chip_smoke.py's interleaved
+# A/B of both models' rung-1 requests on an H100 (PERF.md, section 6).
+# rife_tpu ships its fusion off, because it lost its A/B on the TPU.
+_FUSE_BLEND = contextvars.ContextVar("rife_tpu_torch_fuse_blend", default=True)
 
-    flow: (N, 4, H, W) both directions; mask: (N, 1, H, W) pre-sigmoid.
-    Returns (blend, w0, w1) when need_pair, else blend.  (The fused
-    warp+blend kernel of the reference is off by default there and is
-    not ported yet.)"""
+
+@contextlib.contextmanager
+def use_fuse_blend(flag: bool):
+    """Inside: `warp2_blend_planes` takes the fused kernel (True) or the
+    composed ops (False).  A context variable, so a thread that sets it
+    leaves every other thread's value as it was."""
+    tok = _FUSE_BLEND.set(bool(flag))
+    try:
+        yield
+    finally:
+        _FUSE_BLEND.reset(tok)
+
+
+def warp2_blend_composed(img_a, img_b, flow, mask):
+    """Pair warp (one `warp2_planes` launch) and a torch blend with the
+    sigmoid of `mask` -> (blend, w0, w1).  The switch's off route, and
+    the formulation the fused route differentiates through."""
     w0, w1 = warp2_planes(img_a, img_b, flow[:, 0:2], flow[:, 2:4])
     sig = torch.sigmoid(mask)
-    blend = w0 * sig + w1 * (1 - sig)
+    return w0 * sig + w1 * (1 - sig), w0, w1
+
+
+def warp2_blend_planes_ref(img_a, img_b, flow, mask, need_pair: bool = True):
+    """Plain PyTorch version of the fused kernel -> (blend, w0, w1) when
+    need_pair, else blend, in the images' dtype.  w0 and w1 are
+    `warp_planes_ref`'s; the sigmoid is taken in f32 and rounded to the
+    images' dtype; the blend is computed in f32 and rounded once.  The
+    reference the kernel is held to, and the CPU path's forward."""
+    acc = torch.float64 if img_a.dtype == torch.float64 else torch.float32
+    n = img_a.shape[0]
+    both = warp_planes_ref(torch.cat([img_a, img_b], 0),
+                           torch.cat([flow[:, 0:2], flow[:, 2:4]], 0))
+    w0, w1 = both[:n], both[n:]
+    sig = torch.sigmoid(mask.to(acc)).to(img_a.dtype).to(acc)
+    blend = (w0.to(acc) * sig + w1.to(acc) * (1 - sig)).to(img_a.dtype)
     return (blend, w0, w1) if need_pair else blend
+
+
+class _WarpBlend(torch.autograd.Function):
+    """The fused pair warp + blend: the plain version on CPU tensors, the
+    CUDA kernel on CUDA tensors.  The backward differentiates the composed
+    formulation (`warp2_blend_composed`: the warp's gradient kernel on the
+    card, autograd for the blend), as rife_tpu's `_wbp_bwd`/`_wbo_bwd` do."""
+
+    @staticmethod
+    def forward(ctx, img_a, img_b, flow, mask, need_pair):
+        ctx.save_for_backward(img_a, img_b, flow, mask)
+        ctx.need_pair = need_pair
+        ctx.set_materialize_grads(False)
+        if img_a.device.type == "cpu":
+            return warp2_blend_planes_ref(img_a, img_b, flow, mask, need_pair)
+        out = _cuda_blend.launch(img_a, img_b, flow, mask, need_pair)
+        warp2_blend_planes.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, needs)]
+            outs = warp2_blend_composed(*xs)[:3 if ctx.need_pair else 1]
+            used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
+            wanted = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in used], wanted,
+                                           [g for _, g in used], allow_unused=True)
+                       if used else [None] * len(wanted))
+        return (*(next(got) if nd else None for nd in needs), None)
+
+
+def warp2_blend_planes(img_a, img_b, flow, mask, need_pair: bool = True):
+    """Final-level pair warp and sigmoid-mask blend.
+
+    flow: (N, 4, H, W), [:, 0:2] warps img_a and [:, 2:4] img_b; mask:
+    (N, 1, H, W) pre-sigmoid.  Returns (blend, w0, w1) when need_pair,
+    else blend.  Differentiable in all four inputs.  While
+    `use_fuse_blend` is on (the default), one fused launch
+    (`warp2_blend_planes.launches` counts it, CUDA tensors only);
+    otherwise `warp2_blend_composed`, one `warp_planes` launch and the
+    blend's elementwise kernels."""
+    if _FUSE_BLEND.get():
+        return _WarpBlend.apply(img_a.contiguous(), img_b.contiguous(),
+                                flow.contiguous(), mask.contiguous(), need_pair)
+    out = warp2_blend_composed(img_a, img_b, flow, mask)
+    return out if need_pair else out[0]
+
+
+warp2_blend_planes.launches = 0

@@ -6,6 +6,8 @@ output stays at >= 40 dB PSNR against its own f32 output.
 """
 import ast
 import os
+import sys
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 from rife_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
 from rife_tpu.engine.inference import InferenceEngine as JaxEngine
 from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+from rife_tpu_torch.engine.inference import full_f32
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = os.path.join(ROOT, "train_log_r5", "flownet.rtpu")
@@ -73,13 +76,94 @@ def test_engine_refuses_what_is_not_ported(r5_state_dict):
     for kwargs in ({"fast": 2}, {"fast": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine("rife", r5_state_dict, device="cpu", **kwargs)
-    for model in ("rife_m", "rife_2r", "v4.25"):
+    for model in ("rife_m", "rife_2r"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(model, r5_state_dict, device="cpu")
     eng = InferenceEngine("rife", r5_state_dict, device="cpu")
     z = np.zeros((1, 32, 32, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.interpolate(z, z, tta=True)
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+def test_f32_call_keeps_tf32_off_while_another_thread_leaves_full_f32(r5_state_dict):
+    """The TF32 flags are process-wide.  Another thread enters `full_f32`
+    before an f32 request and leaves it while the request runs (between
+    its blocks); the request must still see TF32 off at every block, and
+    the flags come back as they were once both are done."""
+    saved = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        eng = InferenceEngine("rife", r5_state_dict, fast=0, device="cpu")
+        entered, leave, left = threading.Event(), threading.Event(), threading.Event()
+
+        def other():
+            with full_f32():
+                entered.set()
+                leave.wait(30)
+            left.set()
+
+        seen = []
+
+        def record(*_):
+            seen.append(_tf32_flags())
+
+        def let_the_other_leave(*_):
+            leave.set()
+            assert left.wait(30)
+            record()
+
+        hooks = [eng.model.block0.register_forward_pre_hook(record),
+                 eng.model.block1.register_forward_pre_hook(let_the_other_leave)]
+        hooks += [getattr(eng.model, m).register_forward_pre_hook(record)
+                  for m in ("block2", "contextnet", "unet")]
+        th = threading.Thread(target=other)
+        th.start()
+        assert entered.wait(30)
+        a, b = _smooth_pair(1, 64, 64, 2)
+        eng.interpolate(a, b)
+        th.join(30)
+        for h in hooks:
+            h.remove()
+        assert left.is_set() and len(seen) == 5
+        assert all(s == (False, False) for s in seen), seen
+        assert _tf32_flags() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_full_f32_keeps_tf32_off_for_every_thread_inside():
+    """Stress: more threads than cores enter and leave `full_f32` with a
+    short switch interval; each sees TF32 off at every check while inside,
+    and the flags come back as they were once all have left."""
+    saved = _tf32_flags()
+    interval = sys.getswitchinterval()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    seen_on = []
+
+    def worker():
+        for _ in range(300):
+            with full_f32():
+                for _ in range(3):
+                    if _tf32_flags() != (False, False):
+                        seen_on.append(_tf32_flags())
+
+    try:
+        sys.setswitchinterval(1e-6)
+        threads = [threading.Thread(target=worker) for _ in range(4 * (os.cpu_count() or 4))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        assert not any(th.is_alive() for th in threads)
+        assert not seen_on, seen_on[:3]
+        assert _tf32_flags() == (True, True)
+    finally:
+        sys.setswitchinterval(interval)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _imports(path):

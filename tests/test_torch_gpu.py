@@ -1,6 +1,7 @@
-"""rife_tpu_torch on the card: the CUDA warp kernel and its gradient kernel
-against their plain versions, the engine through the kernel against the
-CPU path, and two training steps through both kernels.
+"""rife_tpu_torch on the card: the CUDA warp kernel, its gradient kernel
+and the fused pair warp + blend kernel against their plain versions, the
+engines of both models through the kernels against the CPU path, and two
+training steps through the warp kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -19,6 +20,8 @@ from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_f
 from rife_tpu_torch.ops import warp as tw
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "train_log_r5", "flownet.rtpu")
+CKPT_V425 = os.path.join(os.path.dirname(__file__), "..", "train_log_r5_v425",
+                         "flownet.rtpu")
 
 
 def _need_card():
@@ -91,12 +94,16 @@ def test_engine_goes_through_the_kernel():
     b = np.roll(a, (3, 5), (1, 2))
     ref = InferenceEngine("rife", sd, fast=1, device="cpu").interpolate(a, b)
     eng = InferenceEngine("rife", sd, fast=1)
-    before = tw.warp_planes.launches
-    got = eng.interpolate(a, b)
-    torch.cuda.synchronize()
-    assert tw.warp_planes.launches - before == 7
-    # cuDNN and the CPU backend sum the convolutions in other orders.
-    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+    # Composed final level: 7 warp launches; fused: 6 and one warp_blend.
+    for fused, k1, k2 in ((False, 7, 0), (True, 6, 1)):
+        before, before2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+        with tw.use_fuse_blend(fused):
+            got = eng.interpolate(a, b)
+        torch.cuda.synchronize()
+        assert tw.warp_planes.launches - before == k1
+        assert tw.warp2_blend_planes.launches - before2 == k2
+        # cuDNN and the CPU backend sum the convolutions in other orders.
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
 
 
 @pytest.mark.gpu
@@ -171,3 +178,102 @@ def test_two_training_steps_on_the_card():
     assert tw.warp_planes.launches - f0 == 16 and tw.warp_planes_bwd.launches - b0 == 16
     for k, v in state.model.state_dict().items():
         assert not torch.equal(v, before[k]), k
+
+
+def _ulp(v: np.ndarray, dtype) -> np.ndarray:
+    """One ulp of `dtype` (bf16 or f32) at |v|."""
+    mag = np.maximum(np.abs(v), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - (7 if dtype == torch.bfloat16 else 23))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind", ["smooth", "out_of_frame", "blocks"])
+@pytest.mark.parametrize("need_pair", [True, False])
+def test_blend_kernel_matches_plain_version(side_dtype, dtype, kind, need_pair):
+    """w0 and w1 bit-equal to the plain version (K1's taps and blend); the
+    blend within one ulp of the images' dtype at the magnitude of its
+    terms (the last f32 bit of the sigmoid may move one rounding)."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    n, c, h, w = 3, 3, 45, 67
+    a, b = (torch.from_numpy(rng.random((n, c, h, w), np.float32)).cuda().to(dtype)
+            for _ in range(2))
+    flow = np.concatenate([_flow(rng, n, h, w, kind), _flow(rng, n, h, w, kind)], 1)
+    flow = torch.from_numpy(flow.astype(np.float32)).cuda().to(side_dtype)
+    mask = torch.from_numpy(rng.normal(0, 3, (n, 1, h, w)).astype(np.float32))
+    mask = mask.cuda().to(side_dtype)
+    before = tw.warp2_blend_planes.launches
+    with tw.use_fuse_blend(True):
+        got = tw.warp2_blend_planes(a, b, flow, mask, need_pair=need_pair)
+    assert tw.warp2_blend_planes.launches == before + 1
+    want = tw.warp2_blend_planes_ref(a, b, flow, mask, need_pair=True)
+    torch.cuda.synchronize()
+    got = got if need_pair else (got,)
+    assert all(g.dtype == dtype for g in got)
+    for g, wv in zip(got[1:], want[1:]):
+        assert torch.equal(g, wv)
+    terms = torch.maximum(want[1].float().abs(), want[2].float().abs()).cpu().numpy()
+    err = (got[0].float() - want[0].float()).abs().cpu().numpy()
+    assert np.all(err <= _ulp(terms, dtype)), float(err.max())
+
+
+@pytest.mark.gpu
+def test_blend_kernel_refuses_what_it_cannot_take():
+    _need_card()
+    x = torch.zeros(2, 3, 8, 8, device="cuda")
+    f, m = torch.zeros(2, 4, 8, 8, device="cuda"), torch.zeros(2, 1, 8, 8, device="cuda")
+    from rife_tpu_torch.ops.cuda import warp_blend as cb
+
+    with pytest.raises(ValueError):
+        cb.launch(x, x, f[:, :2], m, True)
+    with pytest.raises(ValueError):
+        cb.launch(x.transpose(2, 3), x, f, m, True)
+    with pytest.raises(TypeError):
+        cb.launch(x.half(), x.half(), f, m, False)
+    with pytest.raises(ValueError):
+        cb.launch(x, x.cpu(), f, m, False)
+
+
+@pytest.mark.gpu
+def test_blend_kernel_gradients_are_the_composed_routes():
+    _need_card()
+    rng = np.random.default_rng(8)
+    n, c, h, w = 2, 3, 24, 40
+    x = [rng.random((n, c, h, w), np.float32), rng.random((n, c, h, w), np.float32),
+         np.concatenate([_flow(rng, n, h, w, "smooth")] * 2, 1).astype(np.float32),
+         rng.normal(0, 2, (n, 1, h, w)).astype(np.float32)]
+    g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32)).cuda()
+    grads = {}
+    for fused in (True, False):
+        ts = [torch.from_numpy(v).cuda().requires_grad_(True) for v in x]
+        with tw.use_fuse_blend(fused):
+            out = tw.warp2_blend_planes(*ts, need_pair=False)
+        (out * g).sum().backward()
+        grads[fused] = [t.grad for t in ts]
+    for f, comp in zip(grads[True], grads[False]):
+        torch.testing.assert_close(f, comp, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast", [0, 1])
+def test_v425_engine_goes_through_the_kernels(fast):
+    """4 warp launches and 1 final launch per forward (warp_blend when the
+    switch is on, a 5th warp when it is off), at rung 0 and 1; the card's
+    f32 output against the CPU path."""
+    _need_card()
+    sd = state_dict_from_jax(load_checkpoint(CKPT_V425)[1])
+    rng = np.random.default_rng(1)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    ref = InferenceEngine("v4.25", sd, fast=fast, device="cpu").interpolate(a, b, 0.25)
+    eng = InferenceEngine("v4.25", sd, fast=fast)
+    for fused, k1, k2 in ((True, 4, 1), (False, 5, 0)):
+        before, before2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+        with tw.use_fuse_blend(fused):
+            got = eng.interpolate(a, b, 0.25)
+        torch.cuda.synchronize()
+        assert tw.warp_planes.launches - before == k1
+        assert tw.warp2_blend_planes.launches - before2 == k2
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)

@@ -10,7 +10,9 @@ by leaf norm, not element by element); one AdamW update <= 1e-6
 relative.
 """
 import functools
+import json
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from rife_tpu.train import lr as jlr
 from rife_tpu.train.loop import _loss_fn as jax_loss_fn
 from rife_tpu_torch.cli import train as cli
 from rife_tpu_torch.data import SyntheticTriplets, VimeoTriplets, batch_iterator
+from rife_tpu_torch.data.vimeo import _PrefetchIterator
 from rife_tpu_torch.engine import load_checkpoint, state_dict_from_jax
 from rife_tpu_torch.models import get_model_def
 from rife_tpu_torch.ops import pyramid as tpyr
@@ -275,3 +278,80 @@ def test_cli_trains_writes_and_resumes_on_cpu(tmp_path):
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.parse_args(["--synthetic"] + flag)
+
+
+def test_cli_logs_the_lr_the_reference_logs(tmp_path):
+    """The lr logged at step s is the schedule at s (rife_tpu/cli/train.py
+    logs `schedule(s)` for the step s just finished), not the lr of that
+    step's update, schedule(s - 1), which is 0.0 at step 1.  Step 200 is
+    reached by resuming a state saved at step 199."""
+    log_dir = tmp_path / "log"
+    base = ["--synthetic", "--batch_size", "2", "--crop", "32", "--device", "cpu",
+            "--workers", "0", "--prefetch", "0", "--log_dir", str(log_dir)]
+    cli.main(base + ["--steps", "1"])
+    st = train_init(get_model_def("rife"), total_steps=200, device="cpu")
+    st.step = 199
+    save_checkpoint(st, str(tmp_path / "s199.rtpu"))
+    cli.main(base + ["--steps", "200", "--resume", str(tmp_path / "s199.rtpu")])
+    recs = [json.loads(x) for x in open(log_dir / "metrics.jsonl").read().splitlines()]
+    assert [r["step"] for r in recs] == [1, 200]
+    for r, total in zip(recs, (1, 200)):
+        want = float(jlr.warmup_cosine_schedule(total, world_scale=2 / 64.0)(r["step"]))
+        assert r["lr"] == pytest.approx(want, rel=1e-6), r
+    assert recs[0]["lr"] > 0.0
+
+
+@pytest.mark.parametrize("workers,prefetch", [(0, 0), (4, 0), (0, 2), (4, 2)])
+def test_batches_do_not_depend_on_workers_or_prefetch(workers, prefetch):
+    """The first 3 batches (crossing an epoch) are bit-identical to the
+    reference's for every loader setting: the augment draws are keyed by
+    (seed, epoch, slot), not by the thread that makes them."""
+    ref = jax_batches(JaxSynthetic(n=10, h=72, w=80, seed=2), 4, seed=5, crop=64,
+                      u8=True)
+    it = batch_iterator(SyntheticTriplets(n=10, h=72, w=80, seed=2), 4, seed=5,
+                        crop=64, workers=workers, prefetch=prefetch)
+    assert isinstance(it, _PrefetchIterator) == (prefetch > 0)
+    try:
+        for _ in range(3):
+            x, y = next(ref), next(it)
+            for k in x:
+                assert x[k].dtype == y[k].dtype, k
+                np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    finally:
+        it.close()
+
+
+def test_prefetch_passes_exceptions_on_and_close_stops_its_thread():
+    def failing():
+        yield 1
+        raise KeyError("bad item")
+
+    it = _PrefetchIterator(failing(), depth=2)
+    assert next(it) == 1
+    with pytest.raises(KeyError, match="bad item"):
+        next(it)
+    with pytest.raises(StopIteration):
+        next(it)
+    it.close()
+
+    def endless():
+        i = 0
+        while True:
+            yield i
+            i += 1
+
+    it = _PrefetchIterator(endless(), depth=2)
+    assert [next(it) for _ in range(3)] == [0, 1, 2]
+    it.close()
+    assert not it._thread.is_alive()
+    assert not any(t is it._thread for t in threading.enumerate())
+
+
+def test_cli_accepts_the_reference_loader_and_warp_flags():
+    args = cli.parse_args(["--synthetic", "--workers", "4", "--prefetch", "3",
+                           "--warp_impl", "pallas"])
+    assert (args.workers, args.prefetch, args.warp_impl) == (4, 3, "pallas")
+    args = cli.parse_args(["--synthetic"])
+    assert (args.workers, args.prefetch, args.warp_impl) == (8, 2, "auto")
+    for impl in ("auto", "xla"):
+        assert cli.parse_args(["--warp_impl", impl]).warp_impl == impl
