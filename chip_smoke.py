@@ -6,10 +6,10 @@
 Phases, each timed against its own budget:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the three CUDA sources for sm_90a (the warp, its
-   gradient and the fused pair warp + blend), one process each in
-   parallel, into build/rife_tpu_torch/ (registers and spills from
-   -Xptxas -v);
+2. build: nvcc compiles the four CUDA sources for sm_90a (the warp, its
+   gradient, the fused pair warp + blend and the NHWC warps K3/K4), one
+   process each in parallel, into build/rife_tpu_torch/ (registers and
+   spills from -Xptxas -v);
 3. kernels: the warp kernel against its plain PyTorch version, on the
    card, at the shapes one forward of the paper model's serving path
    gives it (bf16), plus one f32 shape and a +-200 px per-8x8-block flow
@@ -34,7 +34,19 @@ Phases, each timed against its own budget:
 6. A/B: both models' rung-1 requests with the fused final level and with
    the composed one, interleaved, by CUDA events: the numbers that set
    `use_fuse_blend`'s default;
-7. train: the gradient kernel against its plain version at the 8 warp
+7. legacy: K3 and K4 (the NHWC warps) at every launch shape of an hdv2
+   and an hd forward (batch 4, 736x1280), in every image/flow dtype
+   pairing, on a smooth and a +-200 px block flow, bit-equal to their
+   plain version and to K1 on the permuted planes; their f32 times beside
+   the bytes bound, the plain version, the route through K1 and
+   F.grid_sample, and their bf16 times; then InferenceEngine("hdv2" |
+   "hd") in f32 and bf16 with seeded weights (flow heads scaled) serves 3
+   requests of the same pairs padded to 736x1280: each forward makes 4 K3
+   + 8 K4 launches (hdv2) or 8 K3 + 8 K4 (hd) and no K1 or K2 launch (the
+   warm-up's launches are the checked shapes), the output is finite and
+   in [0, 1], bf16 >= 40 dB against f32, the f32 card output within 2e-4
+   of the CPU path at 128x192; ms/request by CUDA events;
+8. train: the gradient kernel against its plain version at the 8 warp
    shapes of one training step (batch 16, 224x224 crops, N = 32) in bf16,
    once in f32 and once with the +-200 px block flow, timed beside its
    bytes bound, the plain version and grid_sampler_2d_backward; then the
@@ -76,7 +88,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
-            "v4.25": 150, "A/B": 90, "train": 300}
+            "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300}
 BATCH, FRAME_H, FRAME_W, PAN = 4, 720, 1280, 32
 TIMED_LAUNCHES = 20
 # One forward of the rung-1 main path at batch 4 (736x1280): each launch
@@ -129,6 +141,30 @@ LAUNCHES_PER_STEP = sum(m[4] for m in TRAIN_STEP_WARPS)
 TRAIN_TIMED_STEPS = 10
 R5_STEPS = 16000  # the r5 run's length, its cosine horizon
 SMOKE_DTYPE = torch.bfloat16
+# The legacy models (hdv2, hd) at batch 4 (736x1280): no weights in the
+# repo, so seeded random ones with each block's flow head scaled by
+# LEGACY_FLOW_GAIN (at random init the flows stay under a pixel and would
+# leave the warps idle; tests/test_torch_legacy.py scales the same way).
+# Their NHWC warps per forward, f32 (name, C, N, H, W, the image's pixel
+# stride, launches per hdv2 forward, per hd forward): K3 takes C < 8, K4
+# C >= 8.  The flows are contiguous 2-channel NHWC tensors; hd's half-
+# resolution frames are channel slices of the 6-channel downsampled pair.
+LEGACY_FLOW_GAIN = 20.0
+LEGACY_WARPS = [
+    ("pair of frames, full res", 3, 8, 736, 1280, 3, 4, 0),
+    ("half-res frame of the 6-channel pair", 3, 4, 368, 640, 6, 0, 6),
+    ("frame, full res", 3, 4, 736, 1280, 3, 0, 2),
+    ("context 1/4", 32, 4, 184, 320, 32, 2, 2),
+    ("context 1/8", 64, 4, 92, 160, 64, 2, 2),
+    ("context 1/16", 128, 4, 46, 80, 128, 2, 2),
+    ("context 1/32", 256, 4, 23, 40, 256, 2, 2),
+]
+LEGACY_LAUNCHES = {  # (K3, K4) per forward
+    "hdv2": (sum(m[6] for m in LEGACY_WARPS if m[1] < 8),
+             sum(m[6] for m in LEGACY_WARPS if m[1] >= 8)),
+    "hd": (sum(m[7] for m in LEGACY_WARPS if m[1] < 8),
+           sum(m[7] for m in LEGACY_WARPS if m[1] >= 8)),
+}
 
 
 def log(*a):
@@ -561,15 +597,22 @@ def psnr(a, b) -> float:
     return 10 * math.log10(1.0 / max(mse, 1e-20))
 
 
+def _counted(warp_mod) -> dict:
+    """Each kernel's wrapper, by the kernel's name in the kernels line."""
+    return {"warp_planes": warp_mod.warp_planes,
+            "warp_planes_bwd": warp_mod.warp_planes_bwd,
+            "warp_blend": warp_mod.warp2_blend_planes,
+            "warp_nhwc_k3": warp_mod.warp_nhwc_k3,
+            "warp_nhwc_k4": warp_mod.warp_nhwc_k4}
+
+
 def reset_counts(warp_mod):
-    warp_mod.warp_planes.launches = warp_mod.warp_planes_bwd.launches = 0
-    warp_mod.warp2_blend_planes.launches = 0
+    for fn in _counted(warp_mod).values():
+        fn.launches = 0
 
 
 def read_counts(warp_mod) -> dict:
-    return {"warp_planes": warp_mod.warp_planes.launches,
-            "warp_planes_bwd": warp_mod.warp_planes_bwd.launches,
-            "warp_blend": warp_mod.warp2_blend_planes.launches}
+    return {k: fn.launches for k, fn in _counted(warp_mod).items()}
 
 
 def serve(eng, a, b, requests, warp_mod, timestep=0.5):
@@ -584,15 +627,16 @@ def serve(eng, a, b, requests, warp_mod, timestep=0.5):
     return (time.perf_counter() - t0) / requests * 1e3, read_counts(warp_mod), out
 
 
-def check_counts(counts, requests, k1, k2, label):
+def check_counts(counts, requests, k1, k2, label, k3=0, k4=0):
     want = {"warp_planes": k1 * requests, "warp_planes_bwd": 0,
-            "warp_blend": k2 * requests}
+            "warp_blend": k2 * requests, "warp_nhwc_k3": k3 * requests,
+            "warp_nhwc_k4": k4 * requests}
     if counts != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {counts}")
 
 
-def check_frame(out, shape, label):
-    if tuple(out.shape) != tuple(shape) or out.dtype != torch.bfloat16:
+def check_frame(out, shape, label, dtype=torch.bfloat16):
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
         raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype}")
     if not bool(torch.isfinite(out).all()) or float(out.min()) < 0 or float(out.max()) > 1:
         raise AssertionError(f"{label}: output not finite or outside [0, 1]")
@@ -765,6 +809,220 @@ def ab_path(warp_mod, paths):
     return rec
 
 
+def legacy_state_dict(model: str, seed: int = 0) -> dict:
+    """Seeded random weights of a legacy model (the port's
+    `ModelDef.init`), each block's flow head scaled by LEGACY_FLOW_GAIN."""
+    from rife_tpu_torch.models import get_model_def
+
+    sd = get_model_def(model).init(torch.Generator().manual_seed(seed))
+    for i in range(4):
+        for k in ("weight", "bias"):
+            sd[f"block{i}.conv1.{k}"] *= LEGACY_FLOW_GAIN
+    return sd
+
+
+def nhwc_inputs(n, c, h, w, stride, gen, dev, dtype, flow_dtype, kind="smooth"):
+    """An (N, H, W, C) image, the first C channels of a `stride`-channel
+    NHWC tensor (frames in [0, 1]; features signed and larger), and an
+    (N, H, W, 2) flow: smooth, or +-200 px per 8x8 block."""
+    base = torch.rand(n, h, w, stride, device=dev, generator=gen)
+    if c > 3:
+        base = torch.randn(n, h, w, stride, device=dev, generator=gen) * 3
+    img = base.to(dtype)[..., :c]
+    flow = (smooth_flow(n, h, w, 8.0 * w / 1280, gen, dev, flow_dtype) if kind == "smooth"
+            else block_flow(n, h, w, gen, dev, flow_dtype))
+    return img, flow.permute(0, 2, 3, 1).contiguous()
+
+
+def planes_route(warp_mod, img, flow):
+    """The NHWC warp through K1: permute to planes, warp, permute back."""
+    out = warp_mod.warp_planes(img.permute(0, 3, 1, 2).contiguous(),
+                               flow.permute(0, 3, 1, 2).contiguous())
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def check_nhwc(warp_mod, img, flow, label) -> float:
+    """K3 or K4 (by C) against its plain version and against K1 on the
+    permuted planes: both bit-equal (the same coordinate, tap and weight
+    chain).  Returns the largest error against the plain version."""
+    counter = warp_mod.warp_nhwc_k3 if img.shape[-1] < 8 else warp_mod.warp_nhwc_k4
+    before = counter.launches
+    got = warp_mod.warp(img, flow)
+    want = warp_mod.warp_ref(img, flow)
+    via_k1 = planes_route(warp_mod, img, flow)
+    torch.cuda.synchronize()
+    if counter.launches != before + 1:
+        raise AssertionError(f"{label}: the NHWC warp did not launch its kernel")
+    ok = got.dtype == img.dtype and torch.equal(got, want) and torch.equal(got, via_k1)
+    e = float((got.float() - want.float()).abs().max())
+    log(f"  {label}: max |kernel - plain| = {e:.3g}; bit-equal to plain and to K1 on "
+        f"the planes: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"NHWC kernel disagrees with its plain version or K1: {label}")
+    return e
+
+
+def time_nhwc_launch(warp_mod, dev, gen, name, c, n, h, w, stride, per_hdv2, per_hd):
+    """K3/K4 at one legacy launch shape, in f32 (the legacy models' serving
+    dtype) and bf16: times by CUDA events beside the bytes bound, the plain
+    version's, the route through K1 (permute, K1, permute back) and
+    F.grid_sample's (f32, border, align_corners=True)."""
+    img, flow = nhwc_inputs(n, c, h, w, stride, gen, dev, torch.float32, torch.float32)
+    nbytes = 2 * img.numel() * 4 + flow.numel() * 4
+    flops = 9 * img.numel()
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    copies = max(1, math.ceil(160e6 / nbytes))
+    inputs = [nhwc_inputs(n, c, h, w, stride, gen, dev, torch.float32, torch.float32)
+              for _ in range(copies)]
+    ms = device_ms(warp_mod.warp, inputs)
+    plain_ms = device_ms(warp_mod.warp_ref, inputs)
+    k1_route_ms = device_ms(lambda a, f: planes_route(warp_mod, a, f), inputs)
+    lib_inputs = [(a.permute(0, 3, 1, 2), grid_for(f.permute(0, 3, 1, 2))) for a, f in inputs]
+    lib = lambda a, g: F.grid_sample(a, g, mode="bilinear",  # noqa: E731
+                                     padding_mode="border", align_corners=True)
+    lib_err = float((lib(*lib_inputs[0]).permute(0, 2, 3, 1)
+                     - warp_mod.warp_ref(*inputs[0])).abs().max())
+    library_ms = device_ms(lib, lib_inputs)
+    bf16_inputs = [(a.bfloat16(), f.bfloat16()) for a, f in inputs]
+    bf16_ms = device_ms(warp_mod.warp, bf16_inputs)
+    bf16_bound_s = (nbytes / 2) / HBM_BYTES_PER_S
+    log(f"  {name} {(n, h, w, c)} f32: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"via K1 {k1_route_ms * 1e3:.1f} us, grid_sample(f32) {library_ms * 1e3:.1f} us, "
+        f"bound {bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
+        f"{bound_s * 1e3 / ms:.1%} of the bound; bf16 {bf16_ms * 1e3:.1f} us "
+        f"({bf16_bound_s * 1e3 / bf16_ms:.1%} of its bound)")
+    return {"launch": name, "kernel": "k3" if c < 8 else "k4", "img_nhwc": [n, h, w, c],
+            "img_pixel_stride": stride, "dtype": "f32",
+            "launches_per_hdv2_forward": per_hdv2, "launches_per_hd_forward": per_hd,
+            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "k1_route_ms": k1_route_ms,
+            "library_ms": library_ms, "library": "F.grid_sample f32",
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+            else "operations", "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound_s * 1e3,
+            "grid_sample_f32_max_abs_vs_plain": lib_err}
+
+
+def check_and_time_nhwc(warp_mod, dev):
+    """Phase 7, the kernels: K3 and K4 at every launch shape of an hdv2 and
+    an hd forward (batch 4, 736x1280), in every image/flow dtype pairing,
+    on a smooth flow and on the +-200 px block flow, against the plain
+    version and K1; then timed.  Returns the records and the largest error."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = 0.0
+    pairings = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+    for name, c, n, h, w, stride, _, _ in LEGACY_WARPS:
+        for dtype, flow_dtype in pairings:
+            for kind in ("smooth", "blocks"):
+                img, flow = nhwc_inputs(n, c, h, w, stride, gen, dev, dtype, flow_dtype,
+                                        kind)
+                worst = max(worst, check_nhwc(
+                    warp_mod, img, flow, f"{name} {(n, h, w, c)} "
+                    f"{dtypes_label(img, flow)} {kind if kind == 'smooth' else '+-200 px blocks'}"))
+                del img, flow
+    records = [time_nhwc_launch(warp_mod, dev, gen, *m) for m in LEGACY_WARPS]
+    return records, worst
+
+
+@contextlib.contextmanager
+def recorded_nhwc(cuda_nhwc):
+    """Inside: every K3/K4 launch also records (kernel, N, H, W, C, the
+    image's pixel stride, image dtype, flow dtype) in the yielded list."""
+    seen = []
+    k3, k4 = cuda_nhwc.launch_k3, cuda_nhwc.launch_k4
+
+    def wrap(kernel, fn):
+        def launch(img, flow):
+            seen.append((kernel, *img.shape, img.stride(2), img.dtype, flow.dtype))
+            return fn(img, flow)
+        return launch
+
+    cuda_nhwc.launch_k3, cuda_nhwc.launch_k4 = wrap("k3", k3), wrap("k4", k4)
+    try:
+        yield seen
+    finally:
+        cuda_nhwc.launch_k3, cuda_nhwc.launch_k4 = k3, k4
+
+
+def events_ms(eng, a, b, requests) -> float:
+    """ms per request on the device clock (CUDA events around `requests`
+    requests)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(requests):
+        eng.interpolate(a, b)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / requests
+
+
+def legacy_path(dev, warp_mod, cuda_nhwc):
+    """Phase 7, serving: InferenceEngine("hdv2" | "hd") in f32 and bf16
+    serves 3 requests of 4 pairs of the 720p panned content (736x1280);
+    the warm-up's NHWC launches must be the checked LEGACY_WARPS, each
+    forward must make the model's K3 + K4 launches and no K1, K1-gradient
+    or K2 launch; the output must be finite and in [0, 1], bf16 >= 40 dB
+    against f32, and the f32 engine on the card within 2e-4 of the CPU
+    path at 128x192."""
+    from rife_tpu_torch.engine import InferenceEngine
+    from rife_tpu_torch.ops import pad_to_multiple
+
+    a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
+    a, pad = pad_to_multiple(torch.from_numpy(a), 32)
+    b, _ = pad_to_multiple(torch.from_numpy(b), 32)
+    a, b = a.to(dev), b.to(dev)
+    sa, sb = smooth_pair(2, 128, 192, 6, seed=13)
+    rec, requests = {}, 3
+    for model in ("hdv2", "hd"):
+        k3, k4 = LEGACY_LAUNCHES[model]
+        sd = legacy_state_dict(model)
+        outs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{model} {str(dtype).replace('torch.', '')}"
+            eng = InferenceEngine(model, sd, compute_dtype=dtype, device=dev)
+            t0 = time.perf_counter()
+            with recorded_nhwc(cuda_nhwc) as seen:
+                eng.warmup(tuple(a.shape))
+            log(f"  {label}: warm-up request {time.perf_counter() - t0:.2f} s")
+            if dtype == torch.float32:
+                col = 6 if model == "hdv2" else 7  # launches per forward
+                want = sorted([("k3" if m[1] < 8 else "k4", *m[2:5], m[1], m[5], dtype, dtype)
+                               for m in LEGACY_WARPS for _ in range(m[col])], key=str)
+                if sorted(seen, key=str) != want:
+                    raise AssertionError(f"{label}: the forward's NHWC launches {seen} are "
+                                         f"not the checked {want}")
+            ms, counts, out = serve(eng, a, b, requests, warp_mod)
+            dev_ms = events_ms(eng, a, b, requests)
+            log(f"  {label}, {requests} requests: {dev_ms:.3f} ms/request by CUDA events "
+                f"({ms:.2f} on the host clock), {BATCH * 1e3 / dev_ms:.2f} interpolated "
+                f"frames/s; launches {counts}")
+            check_counts(counts, requests, 0, 0, label, k3, k4)
+            check_frame(out, a.shape, label, dtype)
+            outs[dtype] = out
+            rec[f"{model} {str(dtype).replace('torch.', '')}"] = {
+                "launches": counts, "ms_per_request": dev_ms, "host_ms_per_request": ms,
+                "frames_per_s": BATCH * 1e3 / dev_ms}
+            if dtype == torch.float32:
+                on_card = eng.interpolate(sa, sb).cpu()
+                on_cpu = InferenceEngine(model, sd, device="cpu").interpolate(sa, sb)
+                diff = float((on_card - on_cpu).abs().max())
+                log(f"  {label} on the card vs the CPU path at 128x192: max |diff| = "
+                    f"{diff:.3g} (<= 2e-4)")
+                if not diff <= 2e-4:
+                    raise AssertionError(f"{label}: the card disagrees with the CPU path")
+                rec[f"{model} float32"]["f32_card_vs_cpu_max_abs"] = diff
+            del eng
+        quality = psnr(pad.crop(outs[torch.bfloat16]).float(), pad.crop(outs[torch.float32]))
+        log(f"  {model}: bf16 vs the port's own f32 (TF32 off): {quality:.2f} dB PSNR (>= 40)")
+        if not quality >= 40.0:
+            raise AssertionError(f"{model}: bf16 output at {quality:.2f} dB against f32")
+        rec[f"{model} bfloat16"]["psnr_bf16_vs_f32_db"] = quality
+        torch.cuda.empty_cache()
+    return rec
+
+
 def _grads(model) -> dict:
     return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
 
@@ -822,7 +1080,7 @@ def recorded_launches(cuda_warp):
 
 
 def train_path(dev, warp_mod, cuda_warp):
-    """Phase 5: training through both kernels (see the module docstring).
+    """Phase 8: training through both kernels (see the module docstring).
     Returns the records of the run."""
     from rife_tpu_torch.data import SyntheticTriplets, batch_iterator
     from rife_tpu_torch.engine import load_checkpoint, state_dict_from_jax
@@ -978,6 +1236,7 @@ def main() -> int:
     from rife_tpu_torch.ops.cuda import _build
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
     from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
+    from rife_tpu_torch.ops.cuda import warp_nhwc as cuda_nhwc
 
     dev = torch.device("cuda", 0)
     with Phase("device"):
@@ -989,7 +1248,8 @@ def main() -> int:
     with Phase("build"):
         t0 = time.perf_counter()
         # One nvcc each, all started together.
-        built = _build.build_all(cuda_warp.SOURCES + cuda_blend.SOURCES)
+        built = _build.build_all(cuda_warp.SOURCES + cuda_blend.SOURCES
+                                 + cuda_nhwc.SOURCES)
         log(f"  {len(built)} sources built in {time.perf_counter() - t0:.2f} s")
         for b in built.values():
             log(f"  nvcc: {b.seconds:.2f} s -> {os.path.relpath(b.path, ROOT)}")
@@ -999,6 +1259,7 @@ def main() -> int:
         cuda_warp.library()
         cuda_warp.library_bwd()
         cuda_blend.library()
+        cuda_nhwc.library()
 
     with Phase("kernels"):
         records, worst = check_and_time_kernel(warp_mod, dev)
@@ -1018,6 +1279,10 @@ def main() -> int:
         del rife_keep, v425_keep
         torch.cuda.empty_cache()
 
+    with Phase("legacy"):
+        nhwc_records, nhwc_worst = check_and_time_nhwc(warp_mod, dev)
+        legacy = legacy_path(dev, warp_mod, cuda_nhwc)
+
     with Phase("train"):
         bwd_records, bwd_worst, fwd_worst_train = check_and_time_bwd_kernel(warp_mod, dev)
         train = train_path(dev, warp_mod, cuda_warp)
@@ -1031,7 +1296,23 @@ def main() -> int:
     by_path = lambda k: {"serve rife": main["launches"][k],  # noqa: E731
                          "serve v4.25 rung 1": v425["rung1"]["launches"][k],
                          "serve v4.25 rung 0": v425["rung0"]["launches"][k],
-                         "train": train["launches"][k]}
+                         "train": train["launches"][k],
+                         **{f"serve {p}": legacy[p]["launches"][k] for p in legacy}}
+
+    def nhwc_row(kernel, replaces, **extra):
+        recs = [r for r in nhwc_records if r["kernel"] == kernel]
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms", "k1_route_ms")
+        per = lambda model: {k: per_fwd(recs, k, f"launches_per_{model}_forward")  # noqa: E731
+                             for k in keys}
+        n = sum(r["launches_per_hdv2_forward"] for r in recs)
+        return {"name": f"warp_nhwc_{kernel}", "route": "cuda",
+                "source": "rife_tpu_torch/csrc/warp_nhwc.cu", "replaces": replaces,
+                "launches": sum(by_path(f"warp_nhwc_{kernel}").values()),
+                "launches_by_path": by_path(f"warp_nhwc_{kernel}"),
+                "max_abs_err": nhwc_worst, **per("hdv2"), "bound_by": bound_by(recs),
+                "times_are": f"per hdv2 f32 forward ({n} launches); library: "
+                             f"F.grid_sample f32; k1_route: permute, K1, permute back",
+                "hd_forward": per("hd"), "per_launch": recs, "card": smi, **extra}
     v425_blend = blend_records[0]
     log(json.dumps({"kernels": [{
         "name": "warp_planes", "route": "cuda",
@@ -1070,7 +1351,9 @@ def main() -> int:
         "bound_ms": v425_blend["bound_ms"], "bound_by": v425_blend["bound_by"],
         "library_ms": v425_blend["library_ms"],
         "times_are": "per v4.25 forward (one blend-only launch)",
-        "per_launch": blend_records, "ab": ab, "card": smi}]}))
+        "per_launch": blend_records, "ab": ab, "card": smi},
+        nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232"),
+        nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy)]}))
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {TOTAL_BUDGET_S} s)")
     if total > TOTAL_BUDGET_S:

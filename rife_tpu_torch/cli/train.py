@@ -22,7 +22,8 @@ the reference, also when the run stops.  Batches are loaded on
 reference; `--warp_impl` is accepted and every value takes the port's
 kernels.
 
-Not ported yet, and refused: models other than `rife` (ROADMAP A13, A16),
+Not ported yet, and refused: models other than `rife` (ROADMAP A13; the
+legacy models `hd` and `hdv2` are served, not trained),
 `--septuplet` (A13), `--vis_interval > 0` (image panels, A13) and
 `--steps_per_call > 1` (the reference's chained steps hide a TPU
 runtime's dispatch cost; A13 records why they are not ported).
@@ -93,7 +94,7 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.model != "rife":
         raise NotImplementedError(f"--model {args.model}: training is ported for "
-                                  f"rife only (ROADMAP.md, queue A items 13 and 16)")
+                                  f"rife only (ROADMAP.md, queue A item 13)")
     if args.septuplet:
         raise NotImplementedError("--septuplet is not ported yet (ROADMAP.md, "
                                   "queue A item 13)")

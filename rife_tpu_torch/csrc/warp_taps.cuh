@@ -1,9 +1,10 @@
 // What the warp kernels share: typed loads and stores, and the sampling
 // coordinate, tap indices and bilinear weights of one output pixel.
 //
-// Included by warp_planes.cu (K1's forward) and warp_blend.cu (K2), so
-// that K2's two warped images are K1's outputs bit for bit, and by
-// warp_planes_bwd.cu for the loads and stores.  Semantics (rife_tpu's
+// Included by warp_planes.cu (K1's forward), warp_blend.cu (K2) and
+// warp_nhwc.cu (K3, K4), so that K2's two warped images and K3/K4's NHWC
+// warps are K1's outputs bit for bit, and by warp_planes_bwd.cu for the
+// loads and stores.  Semantics (rife_tpu's
 // warp_xla_planes): the pixel (x, y) samples at (clamp(x + dx, 0, W-1),
 // clamp(y + dy, 0, H-1)) with x1 = min(x0+1, W-1), y1 = min(y0+1, H-1);
 // coordinates are f32 even for a bf16 flow.
@@ -30,7 +31,32 @@ __device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// The four flat tap indices of one output pixel and its weights.
+// The sampling position of one output pixel: its tap columns x0, x1 and
+// rows y0, y1, the weights' fractions and their complements 1 - f.
+struct Coords {
+  int x0, x1, y0, y1;
+  float fx, fy, gx, gy;
+};
+
+__device__ __forceinline__ Coords coords_at(int x, int y, float dx, float dy,
+                                            int H, int W) {
+  const float ix = fminf(fmaxf((float)x + dx, 0.0f), (float)(W - 1));
+  const float iy = fminf(fmaxf((float)y + dy, 0.0f), (float)(H - 1));
+  const float x0f = floorf(ix);
+  const float y0f = floorf(iy);
+  Coords k;
+  k.x0 = (int)x0f;
+  k.y0 = (int)y0f;
+  k.x1 = min(k.x0 + 1, W - 1);
+  k.y1 = min(k.y0 + 1, H - 1);
+  k.fx = ix - x0f;
+  k.fy = iy - y0f;
+  k.gx = 1.0f - k.fx;
+  k.gy = 1.0f - k.fy;
+  return k;
+}
+
+// The four flat tap indices of one output pixel of a plane and its weights.
 struct Taps {
   int64_t i00, i01, i10, i11;
   float fx, fy, gx, gy;  // fractions and their complements 1 - f
@@ -38,39 +64,38 @@ struct Taps {
 
 __device__ __forceinline__ Taps taps_at(int x, int y, float dx, float dy,
                                         int H, int W) {
-  const float ix = fminf(fmaxf((float)x + dx, 0.0f), (float)(W - 1));
-  const float iy = fminf(fmaxf((float)y + dy, 0.0f), (float)(H - 1));
-  const float x0f = floorf(ix);
-  const float y0f = floorf(iy);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
+  const Coords k = coords_at(x, y, dx, dy, H, W);
   Taps t;
-  t.i00 = (int64_t)y0 * W + x0;
-  t.i01 = (int64_t)y0 * W + x1;
-  t.i10 = (int64_t)y1 * W + x0;
-  t.i11 = (int64_t)y1 * W + x1;
-  t.fx = ix - x0f;
-  t.fy = iy - y0f;
-  t.gx = 1.0f - t.fx;
-  t.gy = 1.0f - t.fy;
+  t.i00 = (int64_t)k.y0 * W + k.x0;
+  t.i01 = (int64_t)k.y0 * W + k.x1;
+  t.i10 = (int64_t)k.y1 * W + k.x0;
+  t.i11 = (int64_t)k.y1 * W + k.x1;
+  t.fx = k.fx;
+  t.fy = k.fy;
+  t.gx = k.gx;
+  t.gy = k.gy;
   return t;
 }
 
-// The bilinear blend of one plane's four taps, in f32.  The plain
-// version's operations in its order, each rounded on its own (the _rn
-// intrinsics are never contracted into an FMA), so the kernels give the
-// plain version's f32 result bit for bit.  A contracted FMA would differ
-// by an f32 rounding, which where the taps cancel is more than one bf16
-// ulp of the small result.
+// The bilinear blend of four taps, in f32.  The plain version's operations
+// in its order, each rounded on its own (the _rn intrinsics are never
+// contracted into an FMA), so the kernels give the plain version's f32
+// result bit for bit.  A contracted FMA would differ by an f32 rounding,
+// which where the taps cancel is more than one bf16 ulp of the small
+// result.
+__device__ __forceinline__ float blend4(float v00, float v01, float v10,
+                                        float v11, float fx, float fy,
+                                        float gx, float gy) {
+  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
+  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
+  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
+}
+
+// The bilinear blend of one plane's four taps.
 template <typename T>
 __device__ __forceinline__ float bilerp(const T* src, const Taps& t) {
-  const float top = __fadd_rn(__fmul_rn(load_f(src + t.i00), t.gx),
-                              __fmul_rn(load_f(src + t.i01), t.fx));
-  const float bot = __fadd_rn(__fmul_rn(load_f(src + t.i10), t.gx),
-                              __fmul_rn(load_f(src + t.i11), t.fx));
-  return __fadd_rn(__fmul_rn(top, t.gy), __fmul_rn(bot, t.fy));
+  return blend4(load_f(src + t.i00), load_f(src + t.i01), load_f(src + t.i10),
+                load_f(src + t.i11), t.fx, t.fy, t.gx, t.gy);
 }
 
 }  // namespace

@@ -14,6 +14,13 @@ int32 count); "step" is int64.
 `state_dict_from_jax` carries a reference parameter tree (or a mu or nu
 tree) into this package's module names and PyTorch's weight layouts;
 `jax_tree_from_state_dict` carries it back.
+
+`load_checkpoint` also reads the legacy models' three-file checkpoints (a
+directory holding the reference's `flownet.pkl`, `contextnet.pkl` and
+`unet.pkl`, rife_tpu/engine/checkpoint.py:105-117) into the reference's
+parameter tree, with its importers `import_hdv2` and `import_hd` (copies
+of rife_tpu/models/torch_import.py's): eval-mode BatchNorm folded into
+`hd`'s bias-free convs.
 """
 from __future__ import annotations
 
@@ -26,9 +33,18 @@ import torch
 
 _MAGIC = b"RIFETPU1"
 # Transposed convs (the paper model's block heads and U-Net decoder, v4.25's
-# block heads and encoder head): stored as the equivalent forward conv.
+# block heads and encoder head, the legacy models' U-Net decoders): stored
+# as the equivalent forward conv.
 _DECONV_PARENTS = ("lastconv", "up0.conv", "up1.conv", "up2.conv", "up3.conv",
                    "encode.cnn3")
+# The same names are plain convs in `hd` and transposed convs in `hdv2`: its
+# flow heads and its U-Net's last layer.
+_MODEL_DECONV_PARENTS = {"hdv2": ("block0.conv1", "block1.conv1", "block2.conv1",
+                                  "block3.conv1", "fusionnet.conv")}
+
+
+def _is_deconv(parent: str, model: str) -> bool:
+    return parent.endswith(_DECONV_PARENTS + _MODEL_DECONV_PARENTS.get(model, ()))
 
 
 def _unflatten(flat: dict):
@@ -77,8 +93,12 @@ def load_params(path: str, prefix: str = ""):
 
 
 def load_checkpoint(path: str):
-    """-> (model name, parameter tree of numpy arrays), dropping the
-    optimizer state of a training checkpoint."""
+    """-> (model name, parameter tree of numpy arrays).  `path` is an
+    `.rtpu` file (the optimizer state of a training checkpoint is
+    dropped), or a directory holding a legacy trio, whose model (`hd` or
+    `hdv2`) is detected from its keys."""
+    if os.path.isdir(path):
+        return load_trio(path)
     with open(path, "rb") as f:
         f.seek(8)
         (hlen,) = struct.unpack("<Q", f.read(8))
@@ -87,6 +107,139 @@ def load_checkpoint(path: str):
         any(k.startswith("params/") for k in keys)
     tree, meta = load_params(path, "params/" if full else "")
     return meta.get("model", "rife"), tree["params"] if full else tree
+
+
+def load_trio(path: str):
+    """A legacy three-file checkpoint -> (`hd` or `hdv2`, parameter tree):
+    `flownet.pkl`, `contextnet.pkl` and `unet.pkl` read with
+    `torch.load(weights_only=True)`, "module." stripped, merged under the
+    prefixes "flownet.", "contextnet." and "fusionnet.", then imported."""
+    from rife_tpu_torch.models.registry import detect_model_from_state_dict
+
+    sd = {}
+    for prefix, fname in (("flownet", "flownet.pkl"), ("contextnet", "contextnet.pkl"),
+                          ("fusionnet", "unet.pkl")):
+        part = torch.load(os.path.join(path, fname), map_location="cpu",
+                          weights_only=True)
+        sd.update({f"{prefix}.{_strip_ddp(k)}": v.numpy() for k, v in part.items()})
+    name = detect_model_from_state_dict(sd)
+    if name not in _IMPORTERS:
+        raise ValueError(f"{path}: a trio of {name!r}, not of a legacy model")
+    return name, _IMPORTERS[name](sd)
+
+
+def _strip_ddp(key: str) -> str:
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def _conv_w(t) -> np.ndarray:
+    """Conv2d weight OIHW -> HWIO."""
+    return np.ascontiguousarray(np.asarray(t).transpose(2, 3, 1, 0))
+
+
+def _deconv_w(t) -> np.ndarray:
+    """ConvTranspose2d weight (I, O, kh, kw) -> the flipped HWIO of the
+    equivalent forward conv."""
+    return np.ascontiguousarray(np.flip(np.asarray(t), (2, 3)).transpose(2, 3, 0, 1))
+
+
+def _conv_prelu(sd, prefix, weight=_conv_w) -> dict:
+    """A torch `Sequential(conv, PReLU)` at `prefix` (`weight` maps the
+    conv's weight: `_deconv_w` for a transposed conv)."""
+    return {"conv": {"w": weight(sd[f"{prefix}.0.weight"]),
+                     "b": np.asarray(sd[f"{prefix}.0.bias"])},
+            "alpha": np.asarray(sd[f"{prefix}.1.weight"]).reshape(-1)}
+
+
+def _conv2(sd, prefix) -> dict:
+    return {"conv1": _conv_prelu(sd, f"{prefix}.conv1"),
+            "conv2": _conv_prelu(sd, f"{prefix}.conv2")}
+
+
+def import_hdv2(sd: dict) -> dict:
+    """The merged v2 trio (oldmodel/RIFE_HDv2.py:152-168) -> the reference's
+    `hdv2` parameter tree (rife_tpu `import_hdv2`)."""
+    params = {}
+    for i in range(4):
+        pre = f"flownet.block{i}"
+        params[f"block{i}"] = {
+            "conv0": [_conv_prelu(sd, f"{pre}.conv0.{j}") for j in range(2)],
+            "convblock": [_conv_prelu(sd, f"{pre}.convblock.{k}") for k in range(6)],
+            "conv1": {"w": _deconv_w(sd[f"{pre}.conv1.weight"]),
+                      "b": np.asarray(sd[f"{pre}.conv1.bias"])}}
+    params["contextnet"] = {f"conv{i}": _conv2(sd, f"contextnet.conv{i}")
+                            for i in range(5)}
+    fus = {name: _conv2(sd, f"fusionnet.{name}")
+           for name in ("conv0", "down0", "down1", "down2", "down3")}
+    fus.update({f"up{n}": _conv_prelu(sd, f"fusionnet.up{n}", _deconv_w) for n in range(4)})
+    fus["conv"] = {"w": _deconv_w(sd["fusionnet.conv.weight"]),
+                   "b": np.asarray(sd["fusionnet.conv.bias"])}
+    params["fusionnet"] = fus
+    return params
+
+
+def _fold_bn(sd, conv_key: str, bn_key: str) -> dict:
+    """Eval-mode BatchNorm2d folded into the bias-free conv before it, in
+    f64: w' = w * gamma / sqrt(var + 1e-5) per output channel, b' = beta -
+    mean * that scale (rife_tpu `_fold_bn`; exact for inference)."""
+    w = _conv_w(sd[f"{conv_key}.weight"])  # HWIO; O is the last axis
+    g, b, m, v = (np.asarray(sd[f"{bn_key}.{k}"], np.float64)
+                  for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = g / np.sqrt(v + 1e-5)
+    return {"w": (w * scale).astype(np.float32), "b": (b - m * scale).astype(np.float32)}
+
+
+def _se_gates(sd, prefix) -> dict:
+    return {"relu1": np.asarray(sd[f"{prefix}.relu1.weight"]).reshape(-1),
+            "relu2": np.asarray(sd[f"{prefix}.relu2.weight"]).reshape(-1),
+            "fc1": {"w": _conv_w(sd[f"{prefix}.fc1.weight"])},
+            "fc2": {"w": _conv_w(sd[f"{prefix}.fc2.weight"])}}
+
+
+def _se_res_hd_flow(sd, prefix) -> dict:
+    """IFNet_HD.ResBlock: conv1 5x5 + BN + PReLU, conv2 3x3 + BN, the SE
+    gate; no shortcut conv (same width, stride 1)."""
+    return {"conv1": {"conv": _fold_bn(sd, f"{prefix}.conv1.0", f"{prefix}.conv1.1"),
+                      "alpha": np.asarray(sd[f"{prefix}.conv1.2.weight"]).reshape(-1)},
+            "conv2": _fold_bn(sd, f"{prefix}.conv2.0", f"{prefix}.conv2.1"),
+            **_se_gates(sd, prefix)}
+
+
+def _se_res_hd(sd, prefix) -> dict:
+    """RIFE_HD.ResBlock: stride 2, biased convs, no BN, a 3x3 shortcut conv."""
+    return {"conv0": {"w": _conv_w(sd[f"{prefix}.conv0.weight"])},
+            "conv1": _conv_prelu(sd, f"{prefix}.conv1"),
+            "conv2": {"w": _conv_w(sd[f"{prefix}.conv2.0.weight"]),
+                      "b": np.asarray(sd[f"{prefix}.conv2.0.bias"])},
+            **_se_gates(sd, prefix)}
+
+
+def import_hd(sd: dict) -> dict:
+    """The merged v1 trio (oldmodel/RIFE_HD.py:167-189) -> the reference's
+    `hd` parameter tree, BatchNorm folded (rife_tpu `import_hd`)."""
+    params = {}
+    for i in range(4):
+        pre = f"flownet.block{i}"
+        blk = {"conv0": {"conv": _fold_bn(sd, f"{pre}.conv0.0", f"{pre}.conv0.1"),
+                         "alpha": np.asarray(sd[f"{pre}.conv0.2.weight"]).reshape(-1)},
+               "conv1": {"w": _conv_w(sd[f"{pre}.conv1.weight"]),
+                         "b": np.asarray(sd[f"{pre}.conv1.bias"])}}
+        for j in range(6):
+            blk[f"res{j}"] = _se_res_hd_flow(sd, f"{pre}.res{j}")
+        params[f"block{i}"] = blk
+    ctx = {"conv0": _conv_prelu(sd, "contextnet.conv0")}
+    ctx.update({f"conv{i}": _se_res_hd(sd, f"contextnet.conv{i}") for i in range(1, 5)})
+    params["contextnet"] = ctx
+    fus = {"conv0": _conv_prelu(sd, "fusionnet.conv0")}
+    fus.update({f"down{i}": _se_res_hd(sd, f"fusionnet.down{i}") for i in range(4)})
+    fus.update({f"up{n}": _conv_prelu(sd, f"fusionnet.up{n}", _deconv_w) for n in range(4)})
+    fus["conv"] = {"w": _conv_w(sd["fusionnet.conv.weight"]),
+                   "b": np.asarray(sd["fusionnet.conv.bias"])}
+    params["fusionnet"] = fus
+    return params
+
+
+_IMPORTERS = {"hd": import_hd, "hdv2": import_hdv2}
 
 
 def _flatten(tree, prefix="", sep="."):
@@ -100,19 +253,21 @@ def _flatten(tree, prefix="", sep="."):
         yield prefix[:-1], np.asarray(tree)
 
 
-def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
-    """Reference parameter tree (numpy or JAX arrays) -> state dict of this
-    package's modules.
+def state_dict_from_jax(params, model: str = "rife") -> dict[str, torch.Tensor]:
+    """Reference parameter tree (numpy or JAX arrays) of `model` -> state
+    dict of this package's modules.
 
     - conv "w" HWIO -> "weight" OIHW; "b" -> "bias";
     - transposed conv "w", stored pre-flipped as (kh, kw, I, O) -> torch's
-      (I, O, kh, kw), flipped back;
-    - PReLU "alpha" (C,) and v4.25's ResConv "beta" (C,) unchanged."""
+      (I, O, kh, kw), flipped back (which layers are transposed depends on
+      the model: `block{i}.conv1` and `fusionnet.conv` are in `hdv2` only);
+    - PReLU "alpha" (C,), `hd`'s "relu1"/"relu2" and v4.25's ResConv "beta"
+      (C,) unchanged."""
     sd = {}
     for key, v in _flatten(params):
         parent, _, leaf = key.rpartition(".")
         v = np.array(v, np.float32)  # a writable copy
-        if leaf == "w" and parent.endswith(_DECONV_PARENTS):
+        if leaf == "w" and _is_deconv(parent, model):
             v = np.flip(v.transpose(2, 3, 0, 1), (2, 3))
         elif leaf == "w":
             v = v.transpose(3, 2, 0, 1)
@@ -122,16 +277,16 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     return sd
 
 
-def jax_tree_from_state_dict(sd) -> dict:
-    """Inverse of `state_dict_from_jax`: a dict of tensors with a state
-    dict's keys -> the reference's parameter tree of f32 numpy
+def jax_tree_from_state_dict(sd, model: str = "rife") -> dict:
+    """Inverse of `state_dict_from_jax`: a dict of tensors with the state
+    dict keys of `model` -> the reference's parameter tree of f32 numpy
     arrays ("weight" OIHW -> "w" HWIO; a transposed conv's (I, O, kh, kw)
     -> flipped (kh, kw, I, O); "bias" -> "b")."""
     flat = {}
     for key, t in sd.items():
         parent, _, leaf = key.rpartition(".")
         v = t.detach().to("cpu", torch.float32).numpy()
-        if leaf == "weight" and parent.endswith(_DECONV_PARENTS):
+        if leaf == "weight" and _is_deconv(parent, model):
             v = np.flip(v, (2, 3)).transpose(2, 3, 0, 1)
         elif leaf == "weight":
             v = v.transpose(2, 3, 1, 0)

@@ -15,8 +15,11 @@ import threading
 import torch
 
 from rife_tpu_torch.models.ifnet import IFNetConfig
+from rife_tpu_torch.models.legacy import HDConfig, HDv2Config
 from rife_tpu_torch.models.registry import ModelDef, get_model_def
 from rife_tpu_torch.ops import from_planes, to_planes
+
+_CHANNELS_LAST = (HDConfig, HDv2Config)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,8 +70,11 @@ class InferenceEngine:
         engine.checkpoint.state_dict_from_jax).  fast: the approximation
         rung, as in the reference: 0 is the exact graph, 1 the serving
         default (fast_level0).  v4.25 has nothing more to approximate, so
-        its rungs 1-4 all mean fast_level0; the paper model's rungs 2-4
-        are not ported yet."""
+        its rungs 1-4 all mean fast_level0; the legacy models (`hd`,
+        `hdv2`) have no rungs and take every rung as the exact graph; the
+        paper model's rungs 2-4 are not ported yet.  scale: the reference's
+        knob, each level's divisor over it (the legacy models' divisor
+        scale_list[0] = 1 / scale)."""
         self.model_def: ModelDef = get_model_def(model)
         self.model_name = model
         rung = int(fast)
@@ -77,7 +83,7 @@ class InferenceEngine:
         if rung >= 2 and isinstance(self.model_def.config, IFNetConfig):
             raise NotImplementedError(f"fast rung {rung} is not ported yet "
                                       f"(ROADMAP.md, queue A item 4)")
-        if rung >= 1:
+        if rung >= 1 and hasattr(self.model_def.config, "fast_level0"):
             self.model_def = dataclasses.replace(
                 self.model_def, config=dataclasses.replace(
                     self.model_def.config, fast_level0=True))
@@ -89,7 +95,13 @@ class InferenceEngine:
         net.load_state_dict(params)  # strict: the checkpoint holds every key
         if hasattr(net, "block_tea"):
             net.block_tea = None  # the training-only teacher stays off the card
-        self.model = net.to(self.device, compute_dtype).eval()
+        # The legacy models keep their activations (and so their weights)
+        # channels-last; the others take planes.
+        self.channels_last = isinstance(self.model_def.config, _CHANNELS_LAST)
+        net = net.to(self.device, compute_dtype)
+        if self.channels_last:
+            net = net.to(memory_format=torch.channels_last)
+        self.model = net.eval()
 
     @torch.inference_mode()
     def interpolate(self, img0, img1, timestep=0.5,
@@ -100,10 +112,7 @@ class InferenceEngine:
         if tta:
             raise NotImplementedError("the TTA flip ensemble is not ported yet "
                                       "(ROADMAP.md, queue A item 5)")
-        a = to_planes(torch.as_tensor(img0, device=self.device)
-                      .to(self.compute_dtype))
-        b = to_planes(torch.as_tensor(img1, device=self.device)
-                      .to(self.compute_dtype))
+        a, b = (self._input(x) for x in (img0, img1))
         kw = {}
         if self.supports_timestep:
             kw["timestep"] = torch.as_tensor(timestep, dtype=torch.float32,
@@ -112,6 +121,15 @@ class InferenceEngine:
               else contextlib.nullcontext()):
             out = self.model(a, b, scale_list=self.scale_list, **kw)
         return from_planes(out["merged"][-1])
+
+    def _input(self, img) -> torch.Tensor:
+        """An NHWC frame batch -> (N, 3, H, W) in the compute dtype on the
+        device: channels-last (a view of the NHWC data, converted once) for
+        the legacy models, contiguous planes for the others."""
+        x = torch.as_tensor(img, device=self.device).to(self.compute_dtype)
+        if self.channels_last:
+            return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return to_planes(x)
 
     def interpolate_batch(self, pairs0, pairs1, timestep=0.5, tta=False):
         """Batched pairs stacked along N."""

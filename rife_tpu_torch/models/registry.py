@@ -1,8 +1,9 @@
-"""Model presets (port of rife_tpu/models/registry.py, the `rife` and
-`v4.25` entries).
+"""Model presets (port of rife_tpu/models/registry.py: the `rife`,
+`v4.25`, `hd` and `hdv2` entries and the checkpoint detection).
 
-`rife_m`, `rife_2r`, `hd` and `hdv2` are not ported yet (ROADMAP.md,
-queue A items 4 and 16)."""
+`rife_m` and `rife_2r` are not ported yet (ROADMAP.md, queue A item 4).
+The legacy models `hd` and `hdv2` are served; training them is not
+ported yet (queue A item 13)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,6 +11,7 @@ from dataclasses import dataclass
 import torch
 
 from rife_tpu_torch.models.ifnet import IFNet, IFNetConfig
+from rife_tpu_torch.models.legacy import HD, HDConfig, HDv2, HDv2Config
 from rife_tpu_torch.models.v425 import V425, V425Config
 from rife_tpu_torch.nn import init_torch_default_
 
@@ -17,7 +19,7 @@ from rife_tpu_torch.nn import init_torch_default_
 @dataclass(frozen=True)
 class ModelDef:
     name: str
-    config: IFNetConfig | V425Config
+    config: IFNetConfig | V425Config | HDConfig | HDv2Config
     build: type
     scale_list: tuple  # per-level divisors before the /scale knob
     pad_multiple: int = 32  # spatial granularity the pyramid requires
@@ -33,6 +35,9 @@ MODEL_REGISTRY: dict[str, ModelDef] = {
     # The scale-16 level halves twice more inside its block: pad to 64.
     "v4.25": ModelDef("v4.25", V425Config(), V425, (16.0, 8.0, 4.0, 2.0, 1.0),
                       pad_multiple=64),
+    # The legacy models: scale_list[0] is their divisor (1 / the scale knob).
+    "hd": ModelDef("hd", HDConfig(), HD, (1.0,)),
+    "hdv2": ModelDef("hdv2", HDv2Config(), HDv2, (1.0,)),
 }
 
 
@@ -42,3 +47,31 @@ def get_model_def(name: str) -> ModelDef:
                                   f"(ROADMAP.md, queue A); ported: "
                                   f"{sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
+
+
+def detect_model_from_state_dict(sd) -> str:
+    """The model of a checkpoint's state dict (reference keys, "module."
+    prefixes allowed), from its keys and shapes (rife_tpu's
+    `detect_model_from_state_dict`): `v4.25`, `hd` (SE ResBlocks res0..),
+    `hdv2` (a merged trio, or a bare flownet with a 6-conv body), `rife_m`
+    (block0 takes 7 channels) or `rife`.  Accepts a dict of tensors or
+    arrays, or an iterable of keys."""
+    shapes = {}
+    if hasattr(sd, "items") and sd and not isinstance(next(iter(sd)), int):
+        shapes = {k: tuple(getattr(v, "shape", ())) for k, v in sd.items()}
+    keys = set(sd)
+    if any(k.startswith("module.") for k in keys):
+        keys = {k.replace("module.", "", 1) for k in keys}
+        shapes = {k.replace("module.", "", 1): v for k, v in shapes.items()}
+    if "encode.cnn0.weight" in keys or "block4.conv0.0.0.weight" in keys:
+        return "v4.25"
+    if any(".res0." in k for k in keys):
+        return "hd"
+    if any(k.startswith("flownet.block0.conv1.") for k in keys):
+        return "hdv2"
+    if "block0.conv1.weight" in keys and "block0.convblock.6.0.weight" not in keys:
+        return "hdv2"
+    if "block0.conv0.0.0.weight" in keys:
+        shp = shapes.get("block0.conv0.0.0.weight")
+        return "rife_m" if shp and len(shp) == 4 and shp[1] == 7 else "rife"
+    raise ValueError("unrecognized checkpoint format")

@@ -1,4 +1,5 @@
-"""Conv and activation primitives on (N, C, H, W), and the ConvPReLU module.
+"""Conv and activation primitives on (N, C, H, W), and the ConvPReLU,
+DeconvPReLU and SEResBlock modules.
 
 Port of rife_tpu/nn/layers.py.  The convolutions go to cuDNN (or the CPU
 backend) through F.conv2d / F.conv_transpose2d: they were XLA
@@ -45,8 +46,15 @@ def leaky_relu(x, negative_slope: float = 0.2):
 def pixel_shuffle(x, r: int = 2):
     """(N, C*r*r, H, W) -> (N, C, H*r, W*r) in torch's channel order
     c_in = c * r^2 + dh * r + dw (`nn.PixelShuffle(r)`), which the
-    reference's NHWC `pixel_shuffle` reproduces."""
-    return F.pixel_shuffle(x, r)
+    reference's NHWC `pixel_shuffle` reproduces.  A channels-last input
+    gives a channels-last output (one copy, as `F.pixel_shuffle` makes);
+    any other input goes to `F.pixel_shuffle`."""
+    if x.is_contiguous() or not x.is_contiguous(memory_format=torch.channels_last):
+        return F.pixel_shuffle(x, r)
+    n, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1).reshape(n, h, w, c // (r * r), r, r)
+    y = y.permute(0, 1, 4, 2, 5, 3).reshape(n, h * r, w * r, c // (r * r))
+    return y.permute(0, 3, 1, 2)
 
 
 def conv_prelu(x, weight, bias, alpha, stride: int = 1):
@@ -55,13 +63,14 @@ def conv_prelu(x, weight, bias, alpha, stride: int = 1):
 
 
 class ConvPReLU(nn.Module):
-    """3x3 Conv2d + PReLU; parameters `conv.weight`, `conv.bias`, `alpha`
-    (the reference tree's conv/w, conv/b, alpha)."""
+    """k x k Conv2d (3 x 3 unless given; padding (k - 1) // 2) + PReLU;
+    parameters `conv.weight`, `conv.bias`, `alpha` (the reference tree's
+    conv/w, conv/b, alpha)."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1, k: int = 3):
         super().__init__()
         self.stride = stride
-        self.conv = nn.Conv2d(cin, cout, 3, stride, 1)
+        self.conv = nn.Conv2d(cin, cout, k, stride, (k - 1) // 2)
         self.alpha = nn.Parameter(torch.full((cout,), 0.25))
 
     def forward(self, x):
@@ -80,3 +89,37 @@ class DeconvPReLU(nn.Module):
     def forward(self, x):
         return prelu(conv_transpose2d(x, self.conv.weight, self.conv.bias),
                      self.alpha)
+
+
+class SEResBlock(nn.Module):
+    """Squeeze-excite ResBlock of the legacy `hd` model (reference
+    rife_tpu/models/legacy.py `_se_resblock`):
+
+        y = conv0(x) (bias-free 3x3 shortcut; x itself at the same width
+            and stride 1), h = conv2(conv1(x)) (k1 x k1 ConvPReLU, then a
+            3x3 conv), w = sigmoid(fc2(prelu(fc1(mean_hw(h)), relu1)))
+            (bias-free 1x1 convs, a single-slope PReLU),
+        out = prelu(h * w + y, relu2).
+
+    Parameters as the reference tree: `conv0.weight`, `conv1.*`,
+    `conv2.weight`/`bias`, `relu1` (1,), `relu2` (C,), `fc1.weight`,
+    `fc2.weight`."""
+
+    def __init__(self, cin: int, cout: int, k1: int = 3, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv0 = None if cin == cout and stride == 1 else \
+            nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = ConvPReLU(cin, cout, stride, k1)
+        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1)
+        self.relu1 = nn.Parameter(torch.full((1,), 0.25))
+        self.relu2 = nn.Parameter(torch.full((cout,), 0.25))
+        self.fc1 = nn.Conv2d(cout, 16, 1, bias=False)
+        self.fc2 = nn.Conv2d(16, cout, 1, bias=False)
+
+    def forward(self, x):
+        y = x if self.conv0 is None else conv2d(x, self.conv0.weight, None, self.stride)
+        h = conv2d(self.conv1(x), self.conv2.weight, self.conv2.bias)
+        w = prelu(conv2d(h.mean((2, 3), keepdim=True), self.fc1.weight), self.relu1)
+        w = torch.sigmoid(conv2d(w, self.fc2.weight))
+        return prelu(h * w + y, self.relu2)

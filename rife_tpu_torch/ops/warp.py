@@ -18,6 +18,13 @@ tensor goes to the plain versions `warp_planes_ref` and
 takes the fused kernel (`ops/cuda/warp_blend.py`; plain version
 `warp2_blend_planes_ref`) while `use_fuse_blend` is on, and the composed
 pair warp plus a torch blend (`warp2_blend_composed`) while it is off.
+
+`warp` and `warp2` are the same warp on NHWC tensors, (N, H, W, C) x
+(N, H, W, 2) (rife_tpu.ops.warp's `warp`/`warp2`, which the legacy models
+call): plain version `warp_ref` on CPU tensors, on CUDA tensors the
+hand-written NHWC kernels (`ops/cuda/warp_nhwc.py`), `warp_nhwc_k3` for
+C < 8 and `warp_nhwc_k4` for C >= 8, as rife_tpu's `warp_pallas_auto`
+splits its f32 inputs.  Their gradient is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from rife_tpu_torch.ops.cuda import warp as _cuda_warp
 from rife_tpu_torch.ops.cuda import warp_blend as _cuda_blend
+from rife_tpu_torch.ops.cuda import warp_nhwc as _cuda_nhwc
 
 
 def to_planes(x: torch.Tensor) -> torch.Tensor:
@@ -285,3 +293,68 @@ def warp2_blend_planes(img_a, img_b, flow, mask, need_pair: bool = True):
 
 
 warp2_blend_planes.launches = 0
+
+
+def warp_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch NHWC warp: (N, H, W, C) x (N, H, W, 2) -> contiguous
+    (N, H, W, C) in the image's dtype, with rife_tpu's `warp_xla` semantics
+    (border clamp, pixel units, f32 coordinates): `warp_planes_ref` on
+    the permuted views, whatever the strides.  The reference K3 and K4 are
+    held to, and the CPU path's warp."""
+    out = warp_planes_ref(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def warp_nhwc_k3(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA tensors (C < 8 on the legacy models' path); counts its
+    launches in `warp_nhwc_k3.launches`."""
+    out = _cuda_nhwc.launch_k3(img, flow)
+    warp_nhwc_k3.launches += 1
+    return out
+
+
+warp_nhwc_k3.launches = 0
+
+
+def warp_nhwc_k4(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """K4 on CUDA tensors (C >= 8); counts its launches in
+    `warp_nhwc_k4.launches`."""
+    out = _cuda_nhwc.launch_k4(img, flow)
+    warp_nhwc_k4.launches += 1
+    return out
+
+
+warp_nhwc_k4.launches = 0
+
+
+class _WarpNHWC(torch.autograd.Function):
+    """The NHWC warp: the plain version on CPU tensors, K3 (C < 8) or K4
+    (C >= 8) on CUDA tensors.  Its backward raises: training the legacy
+    models is not ported, and a zero gradient must never pass for one."""
+
+    @staticmethod
+    def forward(ctx, img, flow):
+        if img.device.type == "cpu":
+            return warp_ref(img, flow)
+        return (warp_nhwc_k3 if img.shape[-1] < 8 else warp_nhwc_k4)(img, flow)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("the NHWC warp's gradient (training the legacy "
+                                  "models) is not ported yet (ROADMAP.md, queue A "
+                                  "item 13)")
+
+
+def warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp `img` (N, H, W, C) by `flow` (N, H, W, 2) -> contiguous
+    (N, H, W, C) in the image's dtype.  On a CUDA tensor the channel
+    stride of both must be 1 (channels-last); K3/K4 raise otherwise."""
+    return _WarpNHWC.apply(img, flow)
+
+
+def warp2(img_a, img_b, flow_a, flow_b):
+    """Warp an img0/img1 pair of NHWC tensors with one launch
+    (batch-concatenated)."""
+    n = img_a.shape[0]
+    both = warp(torch.cat([img_a, img_b], 0), torch.cat([flow_a, flow_b], 0))
+    return both[:n], both[n:]

@@ -10,9 +10,9 @@ count, which the reference trainer's step equals), so the warmup
 schedule's first update has lr 0.  Every step runs
 with TF32 off, like the reference's f32 Precision.HIGHEST.
 
-Not ported: the v4.25 and legacy objectives (ROADMAP A13 and A16) and
-`make_train_step_chained`, which hides a TPU runtime's per-call dispatch
-cost and has no use here.
+Not ported: the v4.25 and legacy objectives (ROADMAP A13; the legacy
+models are served, not trained) and `make_train_step_chained`, which
+hides a TPU runtime's per-call dispatch cost and has no use here.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ def train_init(model_def: ModelDef, *, total_steps: int, seed: int = 1234,
     The default schedule is the reference's warmup + cosine."""
     if model_def.name != "rife":
         raise NotImplementedError(f"training {model_def.name!r} is not ported yet "
-                                  f"(ROADMAP.md, queue A items 13 and 16)")
+                                  f"(ROADMAP.md, queue A item 13)")
     if schedule is None:
         schedule = warmup_cosine_schedule(total_steps, peak=peak_lr,
                                           world_scale=world_scale)

@@ -1,7 +1,7 @@
-"""rife_tpu_torch on the card: the CUDA warp kernel, its gradient kernel
-and the fused pair warp + blend kernel against their plain versions, the
-engines of both models through the kernels against the CPU path, and two
-training steps through the warp kernels.
+"""rife_tpu_torch on the card: the CUDA warp kernel, its gradient kernel,
+the fused pair warp + blend kernel and the NHWC warps K3/K4 against their
+plain versions, the engines of every served model through the kernels
+against the CPU path, and two training steps through the warp kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -277,3 +277,83 @@ def test_v425_engine_goes_through_the_kernels(fast):
         assert tw.warp_planes.launches - before == k1
         assert tw.warp2_blend_planes.launches - before2 == k2
         np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
+def _nhwc(rng, n, h, w, c, kind, dtype, flow_dtype, stride=None):
+    """An NHWC image (the first C channels of `stride`) and an NHWC flow."""
+    base = rng.normal(0, 2, (n, h, w, stride or c)).astype(np.float32)
+    img = torch.from_numpy(base).cuda().to(dtype)[..., :c]
+    flow = _flow(rng, n, h, w, kind).astype(np.float32).transpose(0, 2, 3, 1)
+    return img, torch.from_numpy(np.ascontiguousarray(flow)).cuda().to(flow_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("kind", ["smooth", "out_of_frame", "blocks"])
+@pytest.mark.parametrize("c,stride", [(3, 3), (3, 6), (8, 8), (32, 32), (12, 12),
+                                      (16, 20)])
+def test_nhwc_kernels_match_plain_version_and_k1(dtype, flow_dtype, kind, c, stride):
+    """K3 (C < 8) and K4 (C >= 8; 16-byte loads, or channel by channel where
+    C or the strides are not multiples of 16 bytes) bit-equal to the plain
+    version and to K1 on the permuted planes, contiguous or channel slices."""
+    _need_card()
+    rng = np.random.default_rng(c + stride)
+    img, flow = _nhwc(rng, 3, 37, 131, c, kind, dtype, flow_dtype, stride)
+    counter = tw.warp_nhwc_k3 if c < 8 else tw.warp_nhwc_k4
+    before = counter.launches
+    got = tw.warp(img, flow)
+    assert counter.launches == before + 1
+    want = tw.warp_ref(img, flow)
+    planes = tw.warp_planes(img.permute(0, 3, 1, 2).contiguous(),
+                            flow.permute(0, 3, 1, 2).contiguous())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(got, planes.permute(0, 2, 3, 1))
+
+
+@pytest.mark.gpu
+def test_nhwc_kernels_refuse_what_they_cannot_take():
+    _need_card()
+    for c in (3, 16):
+        img = torch.zeros(2, 8, 8, c, device="cuda")
+        flow = torch.zeros(2, 8, 8, 2, device="cuda")
+        with pytest.raises(ValueError, match="channel"):  # NCHW memory seen as NHWC
+            tw.warp(torch.zeros(2, c, 8, 8, device="cuda").permute(0, 2, 3, 1), flow)
+        with pytest.raises(ValueError, match="channel"):
+            tw.warp(img, torch.zeros(2, 2, 8, 8, device="cuda").permute(0, 2, 3, 1))
+        with pytest.raises(ValueError):
+            tw.warp(img, torch.zeros(2, 8, 9, 2, device="cuda"))
+        with pytest.raises(TypeError):
+            tw.warp(img.half(), flow)
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
+        tw.warp(torch.rand(1, 8, 8, 3, device="cuda", requires_grad=True),
+                torch.zeros(1, 8, 8, 2, device="cuda")).sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,k3", [("hdv2", 4), ("hd", 8)])
+def test_legacy_engine_goes_through_the_nhwc_kernels(model, k3):
+    """K3 + 8 K4 launches per forward and nothing else; the card's f32
+    output within 2e-4 of the CPU path; a bf16 engine runs."""
+    _need_card()
+    from rife_tpu_torch.models import get_model_def
+
+    sd = get_model_def(model).init(torch.Generator().manual_seed(0))
+    for i in range(4):  # flows of several pixels
+        for k in ("weight", "bias"):
+            sd[f"block{i}.conv1.{k}"] *= 20.0
+    rng = np.random.default_rng(2)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    ref = InferenceEngine(model, sd, device="cpu").interpolate(a, b)
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = InferenceEngine(model, sd, compute_dtype=dtype)
+        counters = (tw.warp_nhwc_k3, tw.warp_nhwc_k4, tw.warp_planes, tw.warp2_blend_planes)
+        before = [f.launches for f in counters]
+        got = eng.interpolate(a, b)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(counters, before)] == [k3, 8, 0, 0]
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=2e-4)
