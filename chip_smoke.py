@@ -6,10 +6,10 @@
 Phases, each timed against its own budget:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the four CUDA sources for sm_90a (the warp, its
-   gradient, the fused pair warp + blend and the NHWC warps K3/K4), one
-   process each in parallel, into build/rife_tpu_torch/ (registers and
-   spills from -Xptxas -v);
+2. build: nvcc compiles the five CUDA sources for sm_90a (the warp, its
+   gradient, the fused pair warp + blend, the NHWC warps K3/K4 and the
+   convblock chain K5), one process each in parallel, into
+   build/rife_tpu_torch/ (registers and spills from -Xptxas -v);
 3. kernels: the warp kernel against its plain PyTorch version, on the
    card, at the shapes one forward of the paper model's serving path
    gives it (bf16), plus one f32 shape and a +-200 px per-8x8-block flow
@@ -59,7 +59,25 @@ Phases, each timed against its own budget:
    against the CPU path at 2x64x64 (loss <= 1e-4 relative, gradients
    <= 1e-3 relative norm per parameter), and from a random init at lr
    2e-4 30 steps whose loss must fall below its start and 20 steps on one
-   fixed batch whose loss must fall by 10%.
+   fixed batch whose loss must fall by 10%;
+9. convchain: K5, the IFBlock convblock chain kernel (8 x 3x3 conv + bias
+   + PReLU, + x; bf16 NHWC, one launch per stage), against its plain
+   version on seeded inputs at the three convblock shapes of a served
+   rife request (4x46x80x240, 4x92x160x150, 4x184x320x90) and at C = 12
+   on 2x7x9, with 1 stage (every element within 1 bf16 ulp of the stage
+   and 1 of the residual sum, plus the f32 summation-order term) and 8
+   (the kernel as close to the unrounded f32 chain as the plain version,
+   within 5%), and the r5 weights' 8-stage chains at the served shapes
+   (that, and mean relative <= 1e-3 against the plain version); then on
+   the model's own data: one rife request (r5, bf16, rung 1) captures
+   each block's convblock input and the module's y + x, and K5 runs the
+   three chains with the blocks' packed weights: 24 launches (and the
+   request's 6 warp + 1 fused), mean relative <= 1e-3 against the plain
+   version and < 2e-2 against the model's cuDNN chain; at each served
+   shape the kernel's time beside the cuDNN chain (channels-last, NCHW,
+   the convs alone), the NCHW -> NHWC copy, the plain version and the
+   tensor-core bound.  The served forward itself keeps cuDNN: K5 makes no
+   launch in phases 4-8.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -88,7 +106,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
-            "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300}
+            "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90}
 BATCH, FRAME_H, FRAME_W, PAN = 4, 720, 1280, 32
 TIMED_LAUNCHES = 20
 # One forward of the rung-1 main path at batch 4 (736x1280): each launch
@@ -224,29 +242,13 @@ def block_flow(n, h, w, gen, dev, dtype):
 
 
 def device_ms(fn, inputs) -> float:
-    """Device time of one call of fn(*inputs[i]), from CUDA events around
-    a captured CUDA graph of TIMED_LAUNCHES calls (no host launch cost in
-    the window).  The calls cycle over `inputs`, copies that together
-    exceed the 50 MB L2, so each call finds its operands in device memory
-    as the main path mostly does."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for args in inputs[:2]:
-            fn(*args)  # warm-up outside the capture
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(TIMED_LAUNCHES):
-            fn(*inputs[i % len(inputs)])
-    graph.replay()  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / TIMED_LAUNCHES
+    """Device time of one call of fn(*inputs[i]) by CUDA events around a
+    captured CUDA graph of TIMED_LAUNCHES calls (utils.profiling.graph_ms).
+    The calls cycle over `inputs`, copies that together exceed the 50 MB
+    L2, so each call finds its operands in device memory as the main path
+    mostly does."""
+    from rife_tpu_torch.utils.profiling import graph_ms
+    return graph_ms(fn, inputs, TIMED_LAUNCHES)
 
 
 def grid_for(flow):
@@ -599,7 +601,9 @@ def psnr(a, b) -> float:
 
 def _counted(warp_mod) -> dict:
     """Each kernel's wrapper, by the kernel's name in the kernels line."""
-    return {"warp_planes": warp_mod.warp_planes,
+    from rife_tpu_torch.ops.conv_chain import conv_chain
+    return {"conv_chain": conv_chain,
+            "warp_planes": warp_mod.warp_planes,
             "warp_planes_bwd": warp_mod.warp_planes_bwd,
             "warp_blend": warp_mod.warp2_blend_planes,
             "warp_nhwc_k3": warp_mod.warp_nhwc_k3,
@@ -627,8 +631,8 @@ def serve(eng, a, b, requests, warp_mod, timestep=0.5):
     return (time.perf_counter() - t0) / requests * 1e3, read_counts(warp_mod), out
 
 
-def check_counts(counts, requests, k1, k2, label, k3=0, k4=0):
-    want = {"warp_planes": k1 * requests, "warp_planes_bwd": 0,
+def check_counts(counts, requests, k1, k2, label, k3=0, k4=0, k5=0):
+    want = {"conv_chain": k5 * requests, "warp_planes": k1 * requests, "warp_planes_bwd": 0,
             "warp_blend": k2 * requests, "warp_nhwc_k3": k3 * requests,
             "warp_nhwc_k4": k4 * requests}
     if counts != want:
@@ -1226,6 +1230,78 @@ def train_path(dev, warp_mod, cuda_warp):
     return rec
 
 
+def convchain_path(dev, warp_mod, chain_mod):
+    """Phase 9: K5 against its plain version, then on the convblock inputs
+    of one served rife request, then timed (see the module docstring).
+    Returns the records."""
+    from rife_tpu_torch.engine import (InferenceEngine, load_checkpoint,
+                                       state_dict_from_jax)
+    from rife_tpu_torch.ops import pad_to_multiple
+    from rife_tpu_torch.tools import conv_chain as tool
+
+    name, tree = load_checkpoint(CKPT)
+    eng = InferenceEngine("rife", state_dict_from_jax(tree), compute_dtype=torch.bfloat16,
+                          fast=1, device=dev)
+    blocks = [getattr(eng.model, f"block{i}") for i in range(3)]
+    rec = {"checks": tool.check_kernel(dev, [blk.convblock for blk in blocks])}
+    a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
+    a, _ = pad_to_multiple(torch.from_numpy(a), 32)
+    b, _ = pad_to_multiple(torch.from_numpy(b), 32)
+    a, b = a.to(dev), b.to(dev)
+    eng.warmup(tuple(a.shape))
+    packed = [chain_mod.pack_chain(blk.convblock) for blk in blocks]
+    seen = [{} for _ in blocks]
+    hooks = []
+    for blk, got in zip(blocks, seen):
+        hooks.append(blk.convblock[0].register_forward_pre_hook(
+            lambda m, args, got=got: got.update(x=args[0].clone())))
+        hooks.append(blk.convblock[-1].register_forward_hook(
+            lambda m, args, out, got=got: got.update(y=out.clone())))
+    want_shapes = tool.served_shapes(BATCH, a.shape[1], a.shape[2])
+    reset_counts(warp_mod)
+    torch.cuda.synchronize()
+    eng.interpolate(a, b)
+    for h in hooks:
+        h.remove()
+    outs = []
+    for got, p, (blk_name, n, h, w, c) in zip(seen, packed, want_shapes):
+        if tuple(got["x"].shape) != (n, c, h, w):
+            raise AssertionError(f"{blk_name}: convblock input {tuple(got['x'].shape)}, "
+                                 f"expected {(n, c, h, w)}")
+        outs.append(chain_mod.conv_chain(got["x"].permute(0, 2, 3, 1).contiguous(), *p))
+    torch.cuda.synchronize()
+    counts = read_counts(warp_mod)
+    k1_last, k2 = final_launches(warp_mod)
+    stages = sum(p[0].shape[0] for p in packed)
+    log(f"  one rife request and K5 on its three convblock inputs: launches {counts}")
+    check_counts(counts, 1, LAUNCHES_PER_FORWARD + k1_last, k2, "convchain path",
+                 k5=stages)
+    rec["launches"] = counts
+    rec["model"] = []
+    for got, p, out, (blk_name, n, h, w, c) in zip(seen, packed, outs, want_shapes):
+        e, plain = tool.chain_errors(out, got["x"].permute(0, 2, 3, 1).contiguous(), p)
+        cudnn = (got["y"] + got["x"]).permute(0, 2, 3, 1).float()
+        e["mean_rel_vs_cudnn"] = float((out.float() - cudnn).abs().mean() / cudnn.abs().mean())
+        e["cudnn_mean_rel_vs_plain"] = float((cudnn - plain.float()).abs().mean()
+                                             / plain.float().abs().mean())
+        ok = (e["mean_rel"] <= tool.CHAIN_MEAN_REL
+              and e["kernel_vs_f32"] <= tool.PARITY * e["plain_vs_f32"]
+              and e["mean_rel_vs_cudnn"] < 2e-2 and bool(torch.isfinite(out).all()))
+        log(f"  {blk_name} {(n, h, w, c)} r5 weights, request data: K5 vs plain mean rel "
+            f"{e['mean_rel']:.3g} (<= {tool.CHAIN_MEAN_REL}), max |diff| "
+            f"{e['max_abs_err']:.4g}; to the f32 chain K5 {e['kernel_vs_f32']:.4g}, plain "
+            f"{e['plain_vs_f32']:.4g} (<= {tool.PARITY}x); K5 vs the model's cuDNN chain "
+            f"mean rel {e['mean_rel_vs_cudnn']:.3g} (< 2e-2; cuDNN vs plain "
+            f"{e['cudnn_mean_rel_vs_plain']:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 on {blk_name}'s request data disagrees")
+        rec["model"].append({"block": blk_name, **e})
+    del eng, seen, outs
+    torch.cuda.empty_cache()
+    rec["times"] = [tool.time_shape(*shape, dev) for shape in want_shapes]
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     signal.alarm(HARD_STOP_S)  # SIGALRM ends the run if anything hangs
@@ -1233,7 +1309,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
         return 1
     from rife_tpu_torch.ops import warp as warp_mod
+    from rife_tpu_torch.ops import conv_chain as chain_mod
     from rife_tpu_torch.ops.cuda import _build
+    from rife_tpu_torch.ops.cuda import conv_chain as cuda_chain
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
     from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
     from rife_tpu_torch.ops.cuda import warp_nhwc as cuda_nhwc
@@ -1249,7 +1327,7 @@ def main() -> int:
         t0 = time.perf_counter()
         # One nvcc each, all started together.
         built = _build.build_all(cuda_warp.SOURCES + cuda_blend.SOURCES
-                                 + cuda_nhwc.SOURCES)
+                                 + cuda_nhwc.SOURCES + cuda_chain.SOURCES)
         log(f"  {len(built)} sources built in {time.perf_counter() - t0:.2f} s")
         for b in built.values():
             log(f"  nvcc: {b.seconds:.2f} s -> {os.path.relpath(b.path, ROOT)}")
@@ -1260,6 +1338,7 @@ def main() -> int:
         cuda_warp.library_bwd()
         cuda_blend.library()
         cuda_nhwc.library()
+        cuda_chain.library()
 
     with Phase("kernels"):
         records, worst = check_and_time_kernel(warp_mod, dev)
@@ -1286,6 +1365,9 @@ def main() -> int:
     with Phase("train"):
         bwd_records, bwd_worst, fwd_worst_train = check_and_time_bwd_kernel(warp_mod, dev)
         train = train_path(dev, warp_mod, cuda_warp)
+
+    with Phase("convchain"):
+        conv = convchain_path(dev, warp_mod, chain_mod)
 
     per_fwd = lambda recs, key, n="launches_per_forward": sum(  # noqa: E731
         r[key] * r[n] for r in recs)
@@ -1353,7 +1435,23 @@ def main() -> int:
         "times_are": "per v4.25 forward (one blend-only launch)",
         "per_launch": blend_records, "ab": ab, "card": smi},
         nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232"),
-        nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy)]}))
+        nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy), {
+        "name": "k5", "wrapper": "rife_tpu_torch.ops.conv_chain.conv_chain",
+        "route": "cuda", "source": "rife_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "tools/r3_exp50_pallasconv.py:86",
+        "replaces_also": "tools/r3_exp50_pallasconv.py:165 (pallas_core_v2)",
+        "launches": conv["launches"]["conv_chain"],
+        "launches_by_path": {"rife request's three convblocks": conv["launches"]["conv_chain"],
+                             **by_path("conv_chain")},
+        "max_abs_err": max(r["max_abs_err"] for r in conv["checks"]),
+        **{k: sum(r[k] for r in conv["times"])
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": bound_by(conv["times"]),
+        "times_are": "per rife request's three convblocks (block0-2, one 8-stage chain "
+                     "each); library: the port's ConvPReLU loop through cuDNN, bf16, "
+                     "channels-last",
+        "per_shape": conv["times"], "checks": conv["checks"], "model": conv["model"],
+        "card": smi}]}))
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {TOTAL_BUDGET_S} s)")
     if total > TOTAL_BUDGET_S:

@@ -8,7 +8,9 @@ kernels and the elementwise glue (everything else); the device-side
 spans of user annotations are left out, as they overlap the kernels.  It
 also gives the share of the profiled window in which the device ran
 nothing (the profiler slows the host, so that share is an upper bound).
-Measured only on a card; without one it raises.
+`graph_ms(fn, inputs, calls)` is the device time of one call of a
+function by CUDA events around a captured CUDA graph.  Measured only on a
+card; without one they raise.
 """
 from __future__ import annotations
 
@@ -37,6 +39,32 @@ def classify(name: str) -> str:
     if "multi_tensor_apply" in low or "adam" in low:
         return CLASSES[4]
     return CLASSES[5]
+
+
+def graph_ms(fn, inputs, calls: int) -> float:
+    """Device time of one call of fn(*inputs[i]), from CUDA events around a
+    captured CUDA graph of `calls` calls cycling over `inputs` (no host
+    launch cost in the window), after a warm-up outside the capture.  Give
+    copies that together exceed the 50 MB L2 where the real caller finds
+    its operands in device memory."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for args in inputs[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def device_breakdown(fn, calls: int = 3) -> dict:

@@ -1,7 +1,8 @@
 """rife_tpu_torch on the card: the CUDA warp kernel, its gradient kernel,
-the fused pair warp + blend kernel and the NHWC warps K3/K4 against their
-plain versions, the engines of every served model through the kernels
-against the CPU path, and two training steps through the warp kernels.
+the fused pair warp + blend kernel, the NHWC warps K3/K4 and the convblock
+chain kernel K5 against their plain versions, the engines of every served
+model through the kernels against the CPU path, and two training steps
+through the warp kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -17,7 +18,9 @@ import pytest
 import torch
 
 from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+from rife_tpu_torch.ops import conv_chain as cc
 from rife_tpu_torch.ops import warp as tw
+from rife_tpu_torch.tools import conv_chain as cc_tool
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "train_log_r5", "flownet.rtpu")
 CKPT_V425 = os.path.join(os.path.dirname(__file__), "..", "train_log_r5_v425",
@@ -357,3 +360,63 @@ def test_legacy_engine_goes_through_the_nhwc_kernels(model, k3):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         if dtype == torch.float32:
             np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=2e-4)
+
+
+# K5 at the three convblock shapes of a served rife request, a 12-channel
+# tail, an odd channel count (1-channel loads) and a width over one block's
+# 256 output channels.
+_CHAIN_SHAPES = cc_tool.SERVED + (cc_tool.ODD, ("C = 5", 2, 6, 11, 5),
+                                  ("C = 264", 1, 5, 6, 264))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [1, 8])
+@pytest.mark.parametrize("shape", _CHAIN_SHAPES, ids=[s[0] for s in _CHAIN_SHAPES])
+def test_conv_chain_kernel_matches_plain_version(shape, stages):
+    """1 stage: every element within 1 bf16 ulp of the stage and 1 of the
+    residual sum, plus the f32 order term; 8 stages: as close to the
+    unrounded f32 chain as the plain version (cc_tool.check_chain).  One
+    launch per stage."""
+    _need_card()
+    name, n, h, w, c = shape
+    params = cc.pack_chain(cc_tool.random_convblock(c, stages, seed=stages).to("cuda"))
+    x = cc_tool.random_input(n, h, w, c, 0, "cuda")
+    before = cc.conv_chain.launches
+    cc_tool.check_chain(x, params, name)
+    assert cc.conv_chain.launches == before + stages
+
+
+@pytest.mark.gpu
+def test_conv_chain_kernel_on_the_r5_convblocks():
+    """The r5 model's three convblocks at their served shapes: 8 stages
+    within mean relative 1e-3 of the plain version."""
+    _need_card()
+    for i, convs in enumerate(cc_tool.r5_convblocks("cuda")):
+        name, n, h, w, c = cc_tool.SERVED[i]
+        cc_tool.check_chain(cc_tool.random_input(n, h, w, c, i, "cuda"), cc.pack_chain(convs),
+                            name, cc_tool.CHAIN_MEAN_REL)
+
+
+@pytest.mark.gpu
+def test_conv_chain_kernel_reads_a_strided_channels_last_input():
+    """A channel slice of a wider NHWC tensor and the NHWC view of a
+    channels-last NCHW tensor are read in place."""
+    _need_card()
+    params = cc.pack_chain(cc_tool.random_convblock(16, 2, seed=3).to("cuda"))
+    wide = cc_tool.random_input(2, 9, 13, 40, 1, "cuda")
+    cc_tool.check_chain(wide[..., 6:22], params, "channel slice")
+    cl = wide[..., :16].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    cc_tool.check_chain(cl.permute(0, 2, 3, 1), params, "channels-last view")
+
+
+@pytest.mark.gpu
+def test_conv_chain_kernel_refuses_what_it_cannot_take():
+    _need_card()
+    params = cc.pack_chain(cc_tool.random_convblock(16, 2, seed=3).to("cuda"))
+    x = cc_tool.random_input(1, 5, 7, 16, 1, "cuda")
+    before = cc.conv_chain.launches
+    with pytest.raises(TypeError):
+        cc.conv_chain(x.float(), *params)
+    with pytest.raises(ValueError):
+        cc.conv_chain(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), *params)
+    assert cc.conv_chain.launches == before
