@@ -6,9 +6,10 @@
 Phases, each timed against its own budget:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles the five CUDA sources for sm_90a (the warp, its
-   gradient, the fused pair warp + blend, the NHWC warps K3/K4 and the
-   convblock chain K5), one process each in parallel, into
+2. build: nvcc compiles the six CUDA sources for sm_90a (the warp, its
+   gradient, the fused pair warp + blend, the NHWC warps K3/K4, the
+   convblock chain K5 and the gather probes K6-K8), one process each in
+   parallel, into
    build/rife_tpu_torch/ (registers and spills from -Xptxas -v);
 3. kernels: the warp kernel against its plain PyTorch version, on the
    card, at the shapes one forward of the paper model's serving path
@@ -77,7 +78,27 @@ Phases, each timed against its own budget:
    shape the kernel's time beside the cuDNN chain (channels-last, NCHW,
    the convs alone), the NCHW -> NHWC copy, the plain version and the
    tensor-core bound.  The served forward itself keeps cuDNN: K5 makes no
-   launch in phases 4-8.
+   launch in phases 4-8;
+10. probes: the round-3 gather probes K6-K8 (rife_tpu_torch.tools.
+   gather_probe, the counterparts of tools/r3_exp1.py, r3_exp2.py and
+   r3_exp21.py) driven once at the scripts' sizes: the recurrence for
+   r3_exp1.py's 8 bodies at R = 4000 in both forms (the tile in shared
+   memory across 1024 threads, and in one warp's registers) and for
+   r3_exp2.py's 7 at 40000 x 32 in the shared-memory form, the block copy
+   with a per-block source index at 64x256 and on a 181 MB stack, the
+   tile gathers (lane, sublane, 8-row broadcast) at 512 and 32768 tiles,
+   10 chained cb = 1 warps and 10 chained K3 warps of a 4x736x1280x3 bf16
+   image, and r3_exp2.py's five warp shapes through K3/K4 and through K1,
+   20 chained each: 23 + 2 + 6 + 10 launches of the new kernels (and 30
+   K3, 80 K4, 100 K1); then each against its plain version: the
+   recurrence bit-equal (contracting bodies over the whole run, the plain
+   version on the host in worker processes; the chaotic unpack bodies
+   over 4 steps, and over 4000 bodies the differing elements counted),
+   the gathers and copies equal to their plain versions and library
+   calls, the warps bit-equal to K3, to each other and to the plain
+   version (also on a +-200 px block flow); then their times beside their
+   bounds, plain versions and library calls.  No launch of these kernels
+   in phases 4-9.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -106,7 +127,12 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
-            "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90}
+            "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90,
+            "probes": 60}
+# Phase 10 compares r3_exp2.py's chaotic bodies over this many steps of 32
+# bodies (the whole run, 40000, takes the plain version minutes; the tool
+# compares it).
+PROBE_CHAOTIC_OUTER = 125
 BATCH, FRAME_H, FRAME_W, PAN = 4, 720, 1280, 32
 TIMED_LAUNCHES = 20
 # One forward of the rung-1 main path at batch 4 (736x1280): each launch
@@ -601,8 +627,10 @@ def psnr(a, b) -> float:
 
 def _counted(warp_mod) -> dict:
     """Each kernel's wrapper, by the kernel's name in the kernels line."""
+    from rife_tpu_torch.ops import gather_probe as gp
     from rife_tpu_torch.ops.conv_chain import conv_chain
-    return {"conv_chain": conv_chain,
+    return {"micro": gp.micro, "select_rows": gp.select_rows, "tile_gather": gp.tile_gather,
+            "warp_nhwc_cb1": gp.warp_nhwc_cb1, "conv_chain": conv_chain,
             "warp_planes": warp_mod.warp_planes,
             "warp_planes_bwd": warp_mod.warp_planes_bwd,
             "warp_blend": warp_mod.warp2_blend_planes,
@@ -632,7 +660,8 @@ def serve(eng, a, b, requests, warp_mod, timestep=0.5):
 
 
 def check_counts(counts, requests, k1, k2, label, k3=0, k4=0, k5=0):
-    want = {"conv_chain": k5 * requests, "warp_planes": k1 * requests, "warp_planes_bwd": 0,
+    want = {"micro": 0, "select_rows": 0, "tile_gather": 0, "warp_nhwc_cb1": 0,
+            "conv_chain": k5 * requests, "warp_planes": k1 * requests, "warp_planes_bwd": 0,
             "warp_blend": k2 * requests, "warp_nhwc_k3": k3 * requests,
             "warp_nhwc_k4": k4 * requests}
     if counts != want:
@@ -1302,6 +1331,73 @@ def convchain_path(dev, warp_mod, chain_mod):
     return rec
 
 
+def probes_path(dev, warp_mod) -> dict:
+    """Phase 10: the gather probes (see the module docstring), through the
+    tool's `run`; the launches are counted from just before its `drive` to
+    just after it.  Returns the records."""
+    from rife_tpu_torch.tools import gather_probe as tool
+
+    seen = {}
+    recs = tool.run(dev, tiny=False, chaotic_outer=PROBE_CHAOTIC_OUTER,
+                    before_drive=lambda: reset_counts(warp_mod),
+                    after_drive=lambda: seen.update(read_counts(warp_mod)))
+    want = {k: tool.DRIVE_LAUNCHES.get(k, 0) for k in seen}
+    log(f"  the probe path's launches: {seen}")
+    if seen != want:
+        raise AssertionError(f"probe path: expected launches {want}, counted {seen}")
+    recs["launches"] = seen
+    return recs
+
+
+def probe_rows(probes: dict, smi: str) -> list:
+    """The kernels line's rows of K6-K8 from phase 10's records."""
+    e1, e2, e21 = probes["exp1"], probes["exp2"], probes["exp21"]
+    launches = probes["launches"]
+    src = "rife_tpu_torch/csrc/gather_probe.cu"
+    sums = lambda recs: {k: sum(r[k] for r in recs)  # noqa: E731
+                         for k in ("ms", "plain_ms", "bound_ms")}
+    exact = lambda recs: max(r["max_abs_err"] for r in recs)  # noqa: E731
+    micro_err = max(r["max_abs_err"] for r in e1["micro"] + e2["micro"] if "max_abs_err" in r)
+    big_sel = e1["select_times"][-1]
+    big_tiles = [r for r in e21["times"] if r["tiles"] == max(r["tiles"] for r in e21["times"])]
+    budget = e1["budget_times"]
+    return [{
+        "name": "micro", "wrapper": "rife_tpu_torch.ops.gather_probe.micro", "route": "cuda",
+        "source": src, "replaces": "tools/r3_exp1.py:45",
+        "replaces_also": "tools/r3_exp2.py:45 (micro)", "launches": launches["micro"],
+        "max_abs_err": micro_err, **sums(e1["micro_times"]), "bound_by": "operations",
+        "library_ms": None, "warp_form_ms": sum(r["warp_form_ms"] for r in e1["micro_times"]),
+        "times_are": "r3_exp1.py's 8 bodies at R = 4000, one launch each, summed, the block "
+                     "form (warp_form_ms: the tile in one warp's registers); bound: the "
+                     "operations over 67 TF/s (per_body: the dependent-chain and one-SM "
+                     "floors beside it); plain: the plain version on the host, one thread",
+        "per_body": e1["micro_times"] + e2["micro_times"], "checks": e1["micro"] + e2["micro"],
+        "card": smi}, {
+        "name": "select_rows", "wrapper": "rife_tpu_torch.ops.gather_probe.select_rows",
+        "route": "cuda", "source": src, "replaces": "tools/r3_exp1.py:92",
+        "launches": launches["select_rows"], "max_abs_err": exact(e1["checks"][:2]),
+        **{k: big_sel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "times_are": f"4416 permuted 8x1280 f32 blocks of a {big_sel['x']} stack; library: "
+                     f"{big_sel['library']}",
+        "per_shape": e1["select_times"], "card": smi}, {
+        "name": "tile_gather", "wrapper": "rife_tpu_torch.ops.gather_probe.tile_gather",
+        "route": "cuda", "source": src, "replaces": "tools/r3_exp21.py:31",
+        "launches": launches["tile_gather"], "max_abs_err": exact(e21["checks"]),
+        **sums(big_tiles), "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in big_tiles),
+        "times_are": f"lane + sublane + bcast8 at NT = {big_tiles[0]['tiles']}, summed; "
+                     f"library: torch.gather", "per_shape": e21["times"], "card": smi}, {
+        "name": "warp_nhwc_cb1", "wrapper": "rife_tpu_torch.ops.gather_probe.warp_nhwc_cb1",
+        "route": "cuda", "source": src, "replaces": "tools/r3_exp1.py:127",
+        "launches": launches["warp_nhwc_cb1"], "max_abs_err": exact(e1["checks"][2:]),
+        **{k: budget[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "k3_ms": budget["k3_ms"],
+        "times_are": f"per warp of {budget['shape']} bf16 (10 chained); library: "
+                     f"{budget['library']}",
+        "exp2_warps": {"checks": e2["warp_checks"], "times": e2["warp_times"]},
+        "probe_path_launches": launches, "card": smi}]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     signal.alarm(HARD_STOP_S)  # SIGALRM ends the run if anything hangs
@@ -1312,6 +1408,7 @@ def main() -> int:
     from rife_tpu_torch.ops import conv_chain as chain_mod
     from rife_tpu_torch.ops.cuda import _build
     from rife_tpu_torch.ops.cuda import conv_chain as cuda_chain
+    from rife_tpu_torch.ops.cuda import gather_probe as cuda_probe
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
     from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
     from rife_tpu_torch.ops.cuda import warp_nhwc as cuda_nhwc
@@ -1327,7 +1424,8 @@ def main() -> int:
         t0 = time.perf_counter()
         # One nvcc each, all started together.
         built = _build.build_all(cuda_warp.SOURCES + cuda_blend.SOURCES
-                                 + cuda_nhwc.SOURCES + cuda_chain.SOURCES)
+                                 + cuda_nhwc.SOURCES + cuda_chain.SOURCES
+                                 + cuda_probe.SOURCES)
         log(f"  {len(built)} sources built in {time.perf_counter() - t0:.2f} s")
         for b in built.values():
             log(f"  nvcc: {b.seconds:.2f} s -> {os.path.relpath(b.path, ROOT)}")
@@ -1339,6 +1437,7 @@ def main() -> int:
         cuda_blend.library()
         cuda_nhwc.library()
         cuda_chain.library()
+        cuda_probe.library()
 
     with Phase("kernels"):
         records, worst = check_and_time_kernel(warp_mod, dev)
@@ -1368,6 +1467,9 @@ def main() -> int:
 
     with Phase("convchain"):
         conv = convchain_path(dev, warp_mod, chain_mod)
+
+    with Phase("probes"):
+        probes = probes_path(dev, warp_mod)
 
     per_fwd = lambda recs, key, n="launches_per_forward": sum(  # noqa: E731
         r[key] * r[n] for r in recs)
@@ -1451,7 +1553,7 @@ def main() -> int:
                      "each); library: the port's ConvPReLU loop through cuDNN, bf16, "
                      "channels-last",
         "per_shape": conv["times"], "checks": conv["checks"], "model": conv["model"],
-        "card": smi}]}))
+        "card": smi}, *probe_rows(probes, smi)]}))
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {TOTAL_BUDGET_S} s)")
     if total > TOTAL_BUDGET_S:

@@ -1,8 +1,8 @@
 """rife_tpu_torch on the card: the CUDA warp kernel, its gradient kernel,
-the fused pair warp + blend kernel, the NHWC warps K3/K4 and the convblock
-chain kernel K5 against their plain versions, the engines of every served
-model through the kernels against the CPU path, and two training steps
-through the warp kernels.
+the fused pair warp + blend kernel, the NHWC warps K3/K4, the convblock
+chain kernel K5 and the gather probes K6-K8 against their plain versions,
+the engines of every served model through the kernels against the CPU
+path, and two training steps through the warp kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -19,8 +19,10 @@ import torch
 
 from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
 from rife_tpu_torch.ops import conv_chain as cc
+from rife_tpu_torch.ops import gather_probe as gp
 from rife_tpu_torch.ops import warp as tw
 from rife_tpu_torch.tools import conv_chain as cc_tool
+from rife_tpu_torch.tools import gather_probe as gp_tool
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "train_log_r5", "flownet.rtpu")
 CKPT_V425 = os.path.join(os.path.dirname(__file__), "..", "train_log_r5_v425",
@@ -420,3 +422,104 @@ def test_conv_chain_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):
         cc.conv_chain(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), *params)
     assert cc.conv_chain.launches == before
+
+
+# K6-K8, the gather probes (ops/gather_probe.py), at the TPU experiments'
+# sizes; the checks are the probe tool's, which raise on a failure.
+_PROBE_SECTIONS = {"exp1": (1, 128, (gp_tool.EXP1_R, 1)),
+                   "exp2": (2, 127, (gp_tool.EXP2_OUTER, gp_tool.EXP2_UNROLL))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("section", sorted(_PROBE_SECTIONS))
+def test_probe_micro_kernel_matches_plain_version(section):
+    """The recurrence for each body of r3_exp1.py (R = 4000) or r3_exp2.py
+    (40000 x 32) bit-equal to its plain version (run on the host in worker
+    processes, stopping exactly at the fixed point), at R = 4000 in both
+    forms (the tile in shared memory, and in one warp's registers); the chaotic
+    unpack bodies bit-equal over 4 steps, and over 4000 bodies their
+    differing elements counted.  One launch per body and form."""
+    _need_card()
+    seed, idx_hi, steps = _PROBE_SECTIONS[section]
+    arrays = gp_tool.micro_inputs(seed, idx_hi)
+    chaotic_outer = 4000 // steps[1]
+    with gp_tool.plain_pool() as pool:
+        plain = gp_tool.submit_section(pool, section, arrays, steps, chaotic_outer)
+        x = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        bodies = gp.EXP1_BODIES if section == "exp1" else gp.EXP2_BODIES
+        before = gp.micro.launches
+        forms = gp.FORMS if steps[1] == 1 else ("block",)  # the warp form: unroll 1
+        outs = {(b, f): gp.micro(*x, b, *steps, f) for b in bodies for f in forms}
+        assert gp.micro.launches == before + len(bodies) * len(forms)
+        recs = gp_tool.check_micro(section, outs, arrays, steps, plain, chaotic_outer)
+    assert all(r.get("differ_after_4_steps", r["differ"]) == 0 for r in recs)
+
+
+@pytest.mark.gpu
+def test_probe_copies_gathers_and_cb1_warp_at_the_scripts_sizes():
+    """select_rows (64x256 and a 181 MB stack), the three tile gathers (512
+    and 32768 tiles) equal to their plain versions and to index_select /
+    torch.gather; 10 chained cb = 1 warps of the 4x736x1280x3 bf16 image
+    bit-equal to K3's and to the plain chain, and one on a +-200 px block
+    flow; r3_exp2.py's five warp shapes through K3/K4 and through K1 bit-
+    equal, 20 chained each."""
+    _need_card()
+    e1, e2, e21 = (gp_tool.exp1_inputs("cuda"), gp_tool.exp2_inputs("cuda"),
+                   gp_tool.exp21_inputs("cuda"))
+    outs = {"sel_small": gp.select_rows(*e1["sel_small"], gp_tool.SEL_ROWS),
+            "sel_big": gp.select_rows(*e1["sel_big"], gp_tool.SEL_ROWS),
+            "cb1_chain": gp_tool.chained(gp.warp_nhwc_cb1, e1["img"], e1["flow"], 10),
+            "k3_chain": gp_tool.chained(tw.warp_nhwc_k3, e1["img"], e1["flow"], 10),
+            "exp2_warps": [(gp_tool.chained(gp_tool.current_warp, img, fl, 20),
+                            gp_tool.chained(gp_tool.planes_route, img, fl, 20))
+                           for _, img, fl in e2["cases"]],
+            "tiles": {(nt, k): gp.tile_gather(x, il if k == "lane" else is_, k)
+                      for nt, (x, il, is_) in e21.items() for k in gp.GATHER_KINDS}}
+    gp_tool.check_exp1(e1, outs)
+    gp_tool.check_exp2_warps(e2, outs)
+    gp_tool.check_exp21(e21, outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("kind", ["smooth", "out_of_frame", "blocks"])
+@pytest.mark.parametrize("c,stride", [(1, 1), (3, 3), (3, 6), (5, 5), (16, 20)])
+def test_probe_cb1_warp_is_k3_bit_for_bit(dtype, flow_dtype, kind, c, stride):
+    """The cb = 1 warp (one thread per pixel and channel) bit-equal to K3
+    and to the plain version, contiguous or a channel slice."""
+    _need_card()
+    rng = np.random.default_rng(10 * c + stride)
+    img, flow = _nhwc(rng, 2, 37, 131, c, kind, dtype, flow_dtype, stride)
+    before = gp.warp_nhwc_cb1.launches
+    got = gp.warp_nhwc_cb1(img, flow)
+    assert gp.warp_nhwc_cb1.launches == before + 1
+    k3 = tw.warp_nhwc_k3(img, flow)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, k3)
+    assert torch.equal(got, tw.warp_ref(img, flow))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_what_they_cannot_take():
+    _need_card()
+    x, idx, idx0, w = (torch.from_numpy(a).cuda() for a in gp_tool.micro_inputs(0, 128))
+    counts = (gp.micro.launches, gp.select_rows.launches, gp.tile_gather.launches,
+              gp.warp_nhwc_cb1.launches)
+    with pytest.raises(ValueError):
+        gp.micro(x, idx, idx0, w, "base", 4, unroll=4)  # built for unroll 1 and 32
+    with pytest.raises(ValueError):
+        gp.micro(x, idx, idx0, w, "base", 4, unroll=32, form="warp")  # built for unroll 1
+    with pytest.raises(ValueError):
+        gp.micro(x.t().contiguous().t(), idx, idx0, w, "base", 4)
+    with pytest.raises(ValueError):
+        gp.select_rows(torch.zeros(16, 3, device="cuda"), torch.zeros(1, dtype=torch.int32,
+                                                                      device="cuda"), 2)
+    t = torch.zeros(2, 128, 8, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError):
+        gp.tile_gather(t, torch.zeros(2, 8, 128, dtype=torch.int32, device="cuda"), "lane")
+    img = torch.zeros(1, 3, 4, 5, device="cuda").permute(0, 2, 3, 1)  # channel stride 20
+    with pytest.raises(ValueError):
+        gp.warp_nhwc_cb1(img, torch.zeros(1, 4, 5, 2, device="cuda"))
+    assert counts == (gp.micro.launches, gp.select_rows.launches, gp.tile_gather.launches,
+                      gp.warp_nhwc_cb1.launches)
