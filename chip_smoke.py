@@ -62,23 +62,27 @@ Phases, each timed against its own budget:
    2e-4 30 steps whose loss must fall below its start and 20 steps on one
    fixed batch whose loss must fall by 10%;
 9. convchain: K5, the IFBlock convblock chain kernel (8 x 3x3 conv + bias
-   + PReLU, + x; bf16 NHWC, one launch per stage), against its plain
-   version on seeded inputs at the three convblock shapes of a served
-   rife request (4x46x80x240, 4x92x160x150, 4x184x320x90) and at C = 12
-   on 2x7x9, with 1 stage (every element within 1 bf16 ulp of the stage
-   and 1 of the residual sum, plus the f32 summation-order term) and 8
-   (the kernel as close to the unrounded f32 chain as the plain version,
-   within 5%), and the r5 weights' 8-stage chains at the served shapes
-   (that, and mean relative <= 1e-3 against the plain version); then on
-   the model's own data: one rife request (r5, bf16, rung 1) captures
-   each block's convblock input and the module's y + x, and K5 runs the
-   three chains with the blocks' packed weights: 24 launches (and the
-   request's 6 warp + 1 fused), mean relative <= 1e-3 against the plain
-   version and < 2e-2 against the model's cuDNN chain; at each served
-   shape the kernel's time beside the cuDNN chain (channels-last, NCHW,
-   the convs alone), the NCHW -> NHWC copy, the plain version and the
-   tensor-core bound.  The served forward itself keeps cuDNN: K5 makes no
-   launch in phases 4-8;
+   + PReLU, + x; bf16; wgmma fed by TMA over the zero-bordered flat
+   layout, one launch per stage): the stage kernel's registers and spills
+   (-Xptxas -v), shared memory and ring slots at each width; K5 against
+   its plain version on seeded inputs at the three convblock shapes of a
+   served rife request (4x46x80x240, 4x92x160x150, 4x184x320x90) and at
+   C = 12 on 2x7x9, with 1 stage (every element within 1 bf16 ulp of the
+   stage and 1 of the residual sum, plus the f32 summation-order term)
+   and 8 (the kernel as close to the unrounded f32 chain as the plain
+   version, within 5%), and the r5 weights' 8-stage chains at the served
+   shapes (that, and mean relative <= 1e-3 against the plain version);
+   then on the model's own data: one rife request (r5, bf16, rung 1)
+   captures each block's convblock input and the module's y + x, and K5
+   runs the three chains with the blocks' packed weights: 24 launches
+   (and the request's 6 warp + 1 fused), mean relative <= 1e-3 against
+   the plain version and < 2e-2 against the model's cuDNN chain; at each
+   served shape the kernel's tiles and waves, its time (the whole call,
+   the copy of x into the flat layout, the parameters' padding and the 8
+   launches alone) beside the cuDNN chain (channels-last, NCHW, the convs
+   alone), the NCHW -> NHWC copy, the plain version and the tensor-core
+   bound.  The served forward itself keeps cuDNN: K5 makes no launch in
+   phases 4-8;
 10. probes: the round-3 gather probes K6-K8 (rife_tpu_torch.tools.
    gather_probe, the counterparts of tools/r3_exp1.py, r3_exp2.py and
    r3_exp21.py) driven once at the scripts' sizes: the recurrence for
@@ -1268,11 +1272,15 @@ def convchain_path(dev, warp_mod, chain_mod):
     from rife_tpu_torch.ops import pad_to_multiple
     from rife_tpu_torch.tools import conv_chain as tool
 
+    resources = tool.kernel_resources()
+    for r in resources:
+        log(f"  {tool.describe_resources(r)}")
     name, tree = load_checkpoint(CKPT)
     eng = InferenceEngine("rife", state_dict_from_jax(tree), compute_dtype=torch.bfloat16,
                           fast=1, device=dev)
     blocks = [getattr(eng.model, f"block{i}") for i in range(3)]
-    rec = {"checks": tool.check_kernel(dev, [blk.convblock for blk in blocks])}
+    rec = {"resources": resources,
+           "checks": tool.check_kernel(dev, [blk.convblock for blk in blocks])}
     a, b = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
     a, _ = pad_to_multiple(torch.from_numpy(a), 32)
     b, _ = pad_to_multiple(torch.from_numpy(b), 32)
@@ -1542,6 +1550,9 @@ def main() -> int:
         "route": "cuda", "source": "rife_tpu_torch/csrc/conv_chain.cu",
         "replaces": "tools/r3_exp50_pallasconv.py:86",
         "replaces_also": "tools/r3_exp50_pallasconv.py:165 (pallas_core_v2)",
+        "design": "wgmma m64 x BN x k16 bf16; TMA boxes of the zero-bordered flat "
+                  "layout (one A box per kernel row's three taps) into mbarrier rings "
+                  "fed by a producer thread; TMA-stored epilogue; persistent grid",
         "launches": conv["launches"]["conv_chain"],
         "launches_by_path": {"rife request's three convblocks": conv["launches"]["conv_chain"],
                              **by_path("conv_chain")},
@@ -1550,8 +1561,10 @@ def main() -> int:
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": bound_by(conv["times"]),
         "times_are": "per rife request's three convblocks (block0-2, one 8-stage chain "
-                     "each); library: the port's ConvPReLU loop through cuDNN, bf16, "
-                     "channels-last",
+                     "each, the copy into the flat layout included); library: the port's "
+                     "ConvPReLU loop through cuDNN, bf16, channels-last",
+        "input_copy_ms": sum(r["input_copy_ms"] for r in conv["times"]),
+        "resources": conv["resources"],
         "per_shape": conv["times"], "checks": conv["checks"], "model": conv["model"],
         "card": smi}, *probe_rows(probes, smi)]}))
     total = time.perf_counter() - t_start

@@ -19,8 +19,24 @@ version `conv_chain_ref`, a CUDA tensor to the hand-written kernel
 (`ops/cuda/conv_chain.py`, bf16 only), one launch per stage, which
 launches or raises.  The served model's `IFBlock` keeps cuDNN: nothing in
 the forward calls this module.
+
+The kernel works on the zero-bordered flat layout of `pallas_core`: the
+activation as an (N * (H+2) * (W+2), ld) matrix (`to_flat`), border rows
+and pad channels zero, so that tap (dy, dx) of row m is row
+m + (dy-1)(W+2) + (dx-1).  The row stride `ld` is C rounded up to 64, so
+that every row starts on a 128-byte line and the kernel's TMA boxes of 64
+channels never cross a row's end (on the H100 rows only 16 bytes apart,
+or boxes cut at the row's end, made its loads much slower); its products
+read the first c8 channels (C rounded up to 8), rounded up to 16.  The
+parameters are zero-padded to `ld` input and `np` output channels
+(`pad_params`, `kernel_params`), which keeps the pad channels of every
+stage exactly 0.  `geometry` and `tile_schedule` give the kernel's tiles:
+128 flat rows by `bn` output channels, walked by a persistent grid of at
+most one block per SM.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -76,30 +92,138 @@ def conv_chain_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y + x.float()).to(x.dtype)
 
 
+BM, BK = 128, 64  # the kernel's flat rows per tile and channels per TMA box
+WIDTHS = (16, 96, 152, 240)  # its wgmma widths for C8 up to 240: one tile along N
+WIDE = 128  # its width past that: tiles of whole 64-channel boxes along N
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The kernel's layout of an (n, h, w, c) chain: `rows` flat rows `ld`
+    channels apart, of which the products read c8 (rounded up to 16);
+    tiles of BM rows by `bn` output channels (`n_tiles` along the
+    channels, `np` = n_tiles * bn padded output channels); `grid`
+    persistent blocks."""
+    n: int
+    h: int
+    w: int
+    c: int
+    c8: int
+    ld: int
+    bn: int
+    n_tiles: int
+    np: int
+    rows: int
+    m_tiles: int
+    tiles: int
+    grid: int
+
+    @property
+    def waves(self) -> float:
+        """Tiles per block: the schedule's longest block takes ceil(waves)."""
+        return self.tiles / self.grid
+
+
+def geometry(n: int, h: int, w: int, c: int, sms: int = 132) -> Geometry:
+    """Tiles of the chain at (n, h, w, c) on a card of `sms` SMs: one tile
+    along the channels of the narrowest width of WIDTHS that covers c8, or
+    tiles of WIDE channels."""
+    c8 = -(-c // 8) * 8
+    ld = -(-c // BK) * BK
+    if c8 <= WIDTHS[-1]:
+        bn, n_tiles = next(b for b in WIDTHS if b >= c8), 1
+    else:
+        bn, n_tiles = WIDE, -(-c8 // WIDE)
+    rows = n * (h + 2) * (w + 2)
+    m_tiles = -(-rows // BM)
+    tiles = m_tiles * n_tiles
+    return Geometry(n, h, w, c, c8, ld, bn, n_tiles, n_tiles * bn, rows, m_tiles, tiles,
+                    min(tiles, sms))
+
+
+def tile_schedule(g: Geometry) -> list:
+    """Block b's tiles in the order it computes them, as (first flat row,
+    first output channel): tiles b, b + grid, ..., tile i being row tile
+    i // n_tiles and channel tile i % n_tiles (the kernel's walk)."""
+    return [[((i // g.n_tiles) * BM, (i % g.n_tiles) * g.bn)
+             for i in range(blk, g.tiles, g.grid)] for blk in range(g.grid)]
+
+
+def to_flat(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """(N, H, W, C) -> the zero-bordered flat (N * (H+2) * (W+2), ld), a
+    new contiguous tensor in x's dtype: border rows and channels C.. zero."""
+    n, h, w, c = x.shape
+    flat = x.new_zeros((n, h + 2, w + 2, ld))
+    dst = flat[:, 1:-1, 1:-1, :c]
+    if x.element_size() == 2 and c % 2 == 0 and x.stride(3) == 1 and all(
+            v % 2 == 0 for v in x.stride()[:3] + (x.storage_offset(),)):
+        # Channel pairs as one 4-byte element: half the elements to copy.
+        dst, x = dst.view(torch.int32), x.view(torch.int32)
+    dst.copy_(x)
+    return flat.view(n * (h + 2) * (w + 2), ld)
+
+
+def from_flat(flat: torch.Tensor, n: int, h: int, w: int, c: int) -> torch.Tensor:
+    """The interior of a flat buffer as an (N, H, W, C) view."""
+    return flat.view(n, h + 2, w + 2, -1)[:, 1:-1, 1:-1, :c]
+
+
+def pad_params(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor, cols: int, rows: int):
+    """Packed (w (S, C, 9, C), b, a (S, C)) zero-padded to w (S, rows, 9,
+    cols) and b, a (S, rows): pad output channels get zero weights, bias
+    and slope, so they compute exactly 0 from any input."""
+    s, c = w.shape[:2]
+    return (F.pad(w, (0, cols - c, 0, 0, 0, rows - c)), F.pad(b, (0, rows - c)),
+            F.pad(a, (0, rows - c)))
+
+
+def kernel_params(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor, g: Geometry):
+    """The kernel's parameters, zero-padded as `pad_params` pads them to
+    (ld, np), the weights laid out as (S, 9, np, ld), so that tap t's B
+    box of stage s is rows (9 s + t) np + n0 ... of one (S * 9 * np, ld)
+    matrix (written in place: one copy, where padding then transposing
+    takes two)."""
+    s, c = w.shape[:2]
+    wp = w.new_zeros((s, 9, g.np, g.ld))
+    wp[:, :, :c, :c] = w.transpose(1, 2)
+    return wp, F.pad(b, (0, g.np - c)), F.pad(a, (0, g.np - c))
+
+
 def conv_chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                a: torch.Tensor) -> torch.Tensor:
     """The chain on x (N, H, W, C) with packed parameters (w, b, a).
 
-    CPU tensors: `conv_chain_ref`.  CUDA tensors: the kernel, one launch
-    per stage (bf16 x and weights, f32 biases and slopes, x's channel
-    stride 1), ping-ponging between the output and one scratch buffer so
-    that the last stage lands in the output; `conv_chain.launches` counts
-    the launches.  Anything else raises."""
+    CPU tensors: `conv_chain_ref`.  CUDA tensors: the kernel (bf16 x and
+    weights, f32 biases and slopes, x's channel stride 1): x is copied once
+    into the flat layout (`to_flat`) and the parameters padded
+    (`kernel_params`), then one launch per stage ping-pongs between two
+    flat buffers, the last stage writing the interior + x to a new
+    contiguous (N, H, W, C) tensor; `conv_chain.launches` counts the
+    launches.  Anything else raises."""
     if x.device.type == "cpu":
         return conv_chain_ref(x, w, b, a)
     _check_params(x, w, b, a)
     _cuda.check(x, w, b, a)
-    stages = w.shape[0]
+    g = geometry(*x.shape, _cuda.sm_count(x.device.index or 0))
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    scratch = torch.empty_like(out) if stages > 1 else None
-    vec = _cuda.vector_width(x, w)
-    src = x
+    run_stages(to_flat(x, g.ld), *kernel_params(w, b, a, g), g, out)
+    return out
+
+
+def run_stages(xin: torch.Tensor, kw: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
+               g: Geometry, out: torch.Tensor) -> None:
+    """The kernel's launches of one chain: xin the flat input (`to_flat`),
+    (kw, kb, ka) from `kernel_params`, out the contiguous (N, H, W, C)
+    result; one launch per stage, each counted in `conv_chain.launches`."""
+    stages = kw.shape[0]
+    bufs = [torch.empty_like(xin) for _ in range(min(2, stages - 1))]
+    src = xin
     for s in range(stages):
-        dst = out if (stages - 1 - s) % 2 == 0 else scratch
-        _cuda.launch_stage(src, x, w[s], b[s], a[s], dst, vec, s == stages - 1)
+        last = s == stages - 1
+        dst = out if last else bufs[s % 2]
+        _cuda.launch_stage(src, dst, xin, kw, kb, ka, g, s, last)
         conv_chain.launches += 1
         src = dst
-    return out
 
 
 conv_chain.launches = 0

@@ -52,12 +52,14 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def build(name: str) -> Built:
-    """Compile `csrc/<name>.cu` (if not built yet) and return the library."""
+def build(name: str, defines: tuple = ()) -> Built:
+    """Compile `csrc/<name>.cu` (if not built yet) and return the library;
+    `defines` ("NAME=VALUE", ...) become -D flags of a separate build."""
     src = CSRC / f"{name}.cu"
     nvcc = _nvcc()
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(src.read_bytes() + headers + " ".join((nvcc,) + NVCC_FLAGS)
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join((nvcc,) + flags)
                          .encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # A `lock` left by an interrupted build tool would block a later one.
@@ -68,7 +70,7 @@ def build(name: str) -> Built:
         return Built(lib, 0.0, log.read_text() if log.exists() else "")
     tmp = BUILD_DIR / f".{name}_{key}.{os.getpid()}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True,
                           timeout=NVCC_TIMEOUT_S)
     seconds = time.perf_counter() - t0

@@ -3,19 +3,24 @@ and timed beside cuDNN's chain and the tensor-core bound.
 
     python -m rife_tpu_torch.tools.conv_chain               # on the card
     python -m rife_tpu_torch.tools.conv_chain --device cpu  # plain version only
+    python -m rife_tpu_torch.tools.conv_chain --profile     # where a stage's time goes
 
 Counterpart of tools/r3_exp50_pallasconv.py's `main`.  On the CPU it runs
 the plain version at a tiny shape against the port's own `ConvPReLU` loop
-and exits.  On the card it holds the kernel to the plain version at the
-three convblock shapes of a served `rife` request (batch 4, 720p padded to
-736x1280, rung 1: block0 4x46x80x240, block1 4x92x160x150, block2
-4x184x320x90) and at C = 12 on 2x7x9 (a channel tail), with 1 and 8
-stages, on seeded weights and inputs; then at the three served shapes it
-times the kernel, the same chain through cuDNN (the port's `ConvPReLU`
-modules in bf16, channels-last and NCHW, and the convs alone without their
-PReLU), the NCHW -> NHWC copy the model's planes would need, and the plain
-version once, beside the tensor-core bound.  `chip_smoke.py` imports these
-functions.  Times are device times by CUDA events
+and exits.  On the card it prints the stage kernel's registers, spills
+(nvcc -Xptxas -v), shared memory and ring slots per width, holds the
+kernel to the plain version at the three convblock shapes of a served
+`rife` request (batch 4, 720p padded to 736x1280, rung 1: block0
+4x46x80x240, block1 4x92x160x150, block2 4x184x320x90) and at C = 12 on
+2x7x9 (a channel tail), with 1 and 8 stages, on seeded weights and
+inputs; then at the three served shapes it gives the kernel's tiles and
+waves and times the whole `conv_chain` call, its parts (the copy of x
+into the zero-bordered flat layout, the parameters' padding, the 8
+launches alone), the same chain through cuDNN (the port's `ConvPReLU`
+modules in bf16, channels-last and NCHW, and the convs alone without
+their PReLU), the NCHW -> NHWC copy the model's planes would need, and
+the plain version once, beside the tensor-core bound.  `chip_smoke.py`
+imports these functions.  Times are device times by CUDA events
 (`utils.profiling.graph_ms`).
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,8 +39,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rife_tpu_torch.nn import ConvPReLU
-from rife_tpu_torch.ops.conv_chain import (conv_chain, conv_chain_ref, conv_stage_ref,
-                                           pack_chain)
+from rife_tpu_torch.ops.conv_chain import (WIDE, WIDTHS, conv_chain, conv_chain_ref,
+                                           conv_stage_ref, geometry, kernel_params,
+                                           pack_chain, run_stages, to_flat)
+from rife_tpu_torch.ops.cuda import _build
+from rife_tpu_torch.ops.cuda import conv_chain as _cuda
 from rife_tpu_torch.utils.profiling import graph_ms
 
 
@@ -222,6 +231,45 @@ def bound(n: int, h: int, w: int, c: int, stages: int = STAGES) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def kernel_resources() -> list[dict]:
+    """Per width of the stage kernel: registers and spill bytes from nvcc's
+    -Xptxas -v report of the built library, dynamic shared memory and the
+    A and B rings' slots as the source sizes them; any ptxas line about
+    wgmma (a serialised wgmma costs its overlap) is kept with it."""
+    log = _build.build("conv_chain").ptxas_log
+    recs = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(conv_stage_kernel|tile_product_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            entry = recs.setdefault((m.group(1), int(m.group(2))), {
+                "kernel": f"{m.group(1)}<{m.group(2)}>", "ptxas": []})
+            continue
+        if entry is None:
+            continue
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entry["spill_store_bytes"], entry["spill_load_bytes"] = map(int, m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)):
+            entry["registers"] = int(m.group(1))
+        if "wgmma" in line:
+            entry["ptxas"].append(line.strip())
+    out = []
+    for bn in sorted(WIDTHS + (WIDE,)):
+        rec = recs.get(("conv_stage_kernel", bn), {"kernel": f"conv_stage_kernel<{bn}>"})
+        rec["dynamic_smem_bytes"], rec["a_ring"], rec["b_ring"] = _cuda.stage_config(bn)
+        out.append(rec)
+    return out
+
+
+def describe_resources(r: dict) -> str:
+    """One line of `kernel_resources`' record of a width."""
+    return (f"{r['kernel']}: {r.get('registers')} registers, spills "
+            f"{r.get('spill_store_bytes')}/{r.get('spill_load_bytes')} bytes, "
+            f"{r['dynamic_smem_bytes']} bytes of shared memory, rings of {r['a_ring']} A and "
+            f"{r['b_ring']} B boxes {' '.join(r.get('ptxas', []))}")
+
+
 def time_shape(name: str, n: int, h: int, w: int, c: int, device, seed: int = 0) -> dict:
     """Times of one chain of STAGES stages at (n, h, w, c), in ms."""
     convs = random_convblock(c, STAGES, seed).to(device, torch.bfloat16)
@@ -229,8 +277,20 @@ def time_shape(name: str, n: int, h: int, w: int, c: int, device, seed: int = 0)
     x = random_input(n, h, w, c, seed, device)
     copies = max(2, math.ceil(COPY_BYTES / (x.numel() * 2)))
     nhwc = [(x.clone(),) for _ in range(copies)]
-    rec = {"shape": name, "nhwc": [n, h, w, c], "stages": STAGES, **bound(n, h, w, c)}
+    g = geometry(n, h, w, c, _cuda.sm_count(x.device.index or 0))
+    rec = {"shape": name, "nhwc": [n, h, w, c], "stages": STAGES, **bound(n, h, w, c),
+           "c8": g.c8, "ld": g.ld, "bn": g.bn, "flat_rows": g.rows, "tiles": g.tiles,
+           "grid": g.grid, "waves": g.waves}
     rec["ms"] = graph_ms(lambda t: conv_chain(t, *params), nhwc, TIMED_CHAINS)
+    # The call's parts: the copy into the flat layout, the parameters'
+    # padding, and the 8 launches alone on a flat input.
+    rec["input_copy_ms"] = graph_ms(lambda t: to_flat(t, g.ld), nhwc, TIMED_CHAINS)
+    rec["params_ms"] = graph_ms(lambda: kernel_params(*params, g), [()], TIMED_CHAINS)
+    kparams = kernel_params(*params, g)
+    flats = [(to_flat(t, g.ld), torch.empty_like(t)) for (t,) in nhwc]
+    rec["stages_ms"] = graph_ms(lambda f, o: run_stages(f, *kparams, g, o), flats,
+                                TIMED_CHAINS)
+    del flats
     # cuDNN channels-last: the NHWC data seen as NCHW, modules channels-last.
     convs_cl = copy.deepcopy(convs).to(memory_format=torch.channels_last)
     cl = [(t.permute(0, 3, 1, 2),) for (t,) in nhwc]
@@ -250,11 +310,62 @@ def time_shape(name: str, n: int, h: int, w: int, c: int, device, seed: int = 0)
     rec["of_bound"] = rec["bound_ms"] / rec["ms"]
     print(f"  {name} {n}x{h}x{w}x{c}, {STAGES} stages: kernel {rec['ms']:.3f} ms "
           f"({rec['tflops']:.1f} TF/s, {rec['of_bound']:.1%} of the bound "
-          f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}); cuDNN channels-last "
+          f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}; input copy "
+          f"{rec['input_copy_ms']:.4f}, parameters {rec['params_ms']:.4f}, 8 launches "
+          f"{rec['stages_ms']:.3f}; {g.tiles} tiles of 128 x {g.bn} on {g.grid} blocks, "
+          f"{g.waves:.2f} waves); cuDNN channels-last "
           f"{rec['cudnn_channels_last_ms']:.3f} (convs alone "
           f"{rec['cudnn_convs_only_channels_last_ms']:.3f}), NCHW "
           f"{rec['cudnn_nchw_ms']:.3f}; NCHW -> NHWC copy {rec['to_nhwc_ms']:.3f}; "
           f"plain {rec['plain_ms']:.2f}", flush=True)
+    return rec
+
+
+def profile_shape(name: str, n: int, h: int, w: int, c: int, device, seed: int = 0) -> dict:
+    """Where a stage's time goes at (n, h, w, c): the profiled build's
+    clock64 marks for an inner stage and the last one, as microseconds
+    per block (cycles scaled by the block's own globaltimer span): the
+    producer's waits for a free ring slot, the first consumer's waits for
+    a full one, its products (issue and the wait for the previous step's
+    group), its epilogue and the epilogue's parts, the whole block, and on
+    the last stage its storer warp's time storing (overlapping the next
+    tile's products); means over blocks, and the longest block."""
+    convs = random_convblock(c, STAGES, seed).to(device, torch.bfloat16)
+    x = random_input(n, h, w, c, seed, device)
+    g = geometry(n, h, w, c, _cuda.sm_count(x.device.index or 0))
+    kw, kb, ka = kernel_params(*pack_chain(convs), g)
+    xin = to_flat(x, g.ld)
+    dst = torch.empty_like(xin)
+    out = torch.empty_like(x)
+    rec = {"shape": name, "nhwc": [n, h, w, c], "tiles": g.tiles, "grid": g.grid}
+    fields = ("producer_wait_us", "consumer_wait_us", "products_us", "epilogue_us",
+              "block_us", None, None, "storer_us", None, "epilogue_last_products_us",
+              "epilogue_staging_wait_us", "epilogue_fragments_us", "epilogue_store_issue_us")
+    for label, stage, last, target in (("inner", 1, False, dst), ("last", STAGES - 1, True,
+                                                                   out)):
+        prof = torch.zeros((g.grid, _cuda.PROF_FIELDS), dtype=torch.int64, device=device)
+        for _ in range(2):  # the second run is the one read
+            prof.zero_()
+            _cuda.launch_stage(xin, target, xin, kw, kb, ka, g, stage, last, prof)
+        torch.cuda.synchronize()
+        q = prof.double().cpu()
+        us_per_cycle = (q[:, 5] / q[:, 4]).mean().item() / 1e3  # the consumer's span
+        q[:, 4] = torch.maximum(q[:, 4], q[:, 8])  # the block ends with its last role
+        cyc = q * us_per_cycle
+        rec[label] = {**{f: float(cyc[:, i].mean()) for i, f in enumerate(fields) if f},
+                      "longest_block_us": float(cyc[:, 4].max()),
+                      "tiles_per_block_max": int(q[:, 6].max()),
+                      "ghz": 1e-3 / us_per_cycle}
+        r = rec[label]
+        print(f"  {name} {label} stage: block {r['block_us']:.1f} us (longest "
+              f"{r['longest_block_us']:.1f}, {r['tiles_per_block_max']} tiles, "
+              f"{r['ghz']:.2f} GHz): consumer waits {r['consumer_wait_us']:.1f}, products "
+              f"{r['products_us']:.1f}, epilogue {r['epilogue_us']:.1f}; producer waits "
+              f"{r['producer_wait_us']:.1f}; storer stores {r['storer_us']:.1f}; epilogue: "
+              f"last products {r['epilogue_last_products_us']:.1f}, staging wait "
+              f"{r['epilogue_staging_wait_us']:.1f}, fragments "
+              f"{r['epilogue_fragments_us']:.1f}, store issue "
+              f"{r['epilogue_store_issue_us']:.1f}", flush=True)
     return rec
 
 
@@ -275,6 +386,9 @@ def cpu_main() -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--profile", action="store_true",
+                    help="only the clock64 breakdown of a stage at the served shapes "
+                         "(a separate, profiled build)")
     args = ap.parse_args(argv)
     if args.device == "cpu":
         return cpu_main()
@@ -287,9 +401,17 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30).stdout.strip()
     print(f"{torch.cuda.get_device_name(device)}; nvidia-smi: {smi}", flush=True)
+    if args.profile:
+        profiles = [profile_shape(*shape, device) for shape in SERVED]
+        print(json.dumps({"card": smi, "profiles": profiles}))
+        return 0
+    resources = kernel_resources()
+    for r in resources:
+        print(f"  {describe_resources(r)}", flush=True)
     checks = check_kernel(device, r5_convblocks(device))
     times = [time_shape(name, n, h, w, c, device) for name, n, h, w, c in SERVED]
-    print(json.dumps({"card": smi, "checks": checks, "times": times}))
+    print(json.dumps({"card": smi, "resources": resources, "checks": checks,
+                      "times": times}))
     return 0
 
 

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rife_tpu_torch.engine import load_checkpoint, state_dict_from_jax
 from rife_tpu_torch.models import get_model_def
@@ -169,13 +170,100 @@ def test_cuda_entry_refuses_what_the_kernel_cannot_take():
         cc.conv_chain(x, w[:, :8], b, a)
 
 
-def test_vector_width_follows_channels_strides_and_alignment():
-    w = torch.zeros(2, 16, 9, 16, dtype=torch.bfloat16)
-    x = torch.zeros(1, 4, 6, 16, dtype=torch.bfloat16)
-    assert cuda_cc.vector_width(x, w) == 8
-    assert cuda_cc.vector_width(torch.zeros(1, 4, 6, 150, dtype=torch.bfloat16),
-                                torch.zeros(2, 150, 9, 150, dtype=torch.bfloat16)) == 2
-    assert cuda_cc.vector_width(torch.zeros(1, 4, 6, 24, dtype=torch.bfloat16)[..., 2:18],
-                                w) == 2  # 18 of 24 channels: strides not 8-aligned
-    assert cuda_cc.vector_width(torch.zeros(1, 4, 6, 5, dtype=torch.bfloat16),
-                                torch.zeros(2, 5, 9, 5, dtype=torch.bfloat16)) == 1
+@pytest.mark.parametrize("shape", [(1, 7, 9, 12), (2, 5, 3, 90), (1, 4, 6, 16)])
+def test_flat_layout_round_trips_with_zero_borders_and_pad_channels(shape):
+    n, h, w, c = shape
+    g = cc.geometry(n, h, w, c)
+    x = torch.from_numpy(np.random.default_rng(c).normal(0, 1, shape).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    flat = cc.to_flat(x, g.ld)
+    assert flat.shape == (g.rows, g.ld) and flat.is_contiguous()
+    assert g.c8 % 8 == 0 and g.ld % 64 == 0 and g.c <= g.c8 <= g.ld
+    assert torch.equal(cc.from_flat(flat, n, h, w, c), x)
+    grid = flat.view(n, h + 2, w + 2, g.ld)
+    interior = torch.zeros(n, h + 2, w + 2, g.ld, dtype=torch.bool)
+    interior[:, 1:-1, 1:-1, :c] = True
+    assert not grid[~interior].any()
+    # A channels-last view of an NCHW tensor goes in as the same values.
+    cl = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    assert torch.equal(cc.to_flat(cl.permute(0, 2, 3, 1), g.ld), flat)
+
+
+@pytest.mark.parametrize("c", [12, 90])
+def test_plain_version_on_padded_channels_equals_unpadded(c):
+    """The kernel computes the chain on C8 channels with zero-padded
+    parameters: the plain version on that padded problem gives the
+    unpadded chain on channels 0..C-1 and exactly 0 on the pad channels."""
+    rng = np.random.default_rng(c)
+    w, b, a = cc.chain_params_from_jax(_params(rng, c, 3), torch.float32)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 5, 7, c)).astype(np.float32))
+    c8 = cc.geometry(2, 5, 7, c).c8
+    assert c8 > c
+    wp, bp, ap = cc.pad_params(w, b, a, c8, c8)
+    assert wp.shape == (3, c8, 9, c8) and bp.shape == ap.shape == (3, c8)
+    got = cc.conv_chain_ref(F.pad(x, (0, c8 - c)), wp, bp, ap)
+    want = cc.conv_chain_ref(x, w, b, a)
+    assert float((got[..., :c] - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert not got[..., c:].any()
+    g = cc.geometry(2, 5, 7, c)
+    kw, kb, ka = cc.kernel_params(w, b, a, g)
+    assert kw.shape == (3, 9, g.np, g.ld) and kw.is_contiguous()
+    assert torch.equal(kw[1, 4, :c, :c], w[1, :, 4, :])
+    assert not kw[:, :, c:].any() and not kw[..., c:].any() and not kb[:, c:].any()
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 9, 12), (4, 46, 80, 240), (1, 5, 6, 264)])
+def test_tile_schedule_covers_every_flat_row_once(shape):
+    n, h, w, c = shape
+    g = cc.geometry(n, h, w, c)
+    assert g.rows == n * (h + 2) * (w + 2) and g.grid <= 132
+    assert g.np == g.n_tiles * g.bn >= g.c8 and g.bn in cc.WIDTHS + (cc.WIDE,)
+    cover = np.zeros((g.rows, g.np), np.int32)
+    blocks = cc.tile_schedule(g)
+    assert len(blocks) == g.grid and max(map(len, blocks)) == -(-g.tiles // g.grid)
+    for tiles in blocks:
+        for m0, n0 in tiles:
+            cover[m0:m0 + cc.BM, n0:n0 + g.bn] += 1
+    assert (cover == 1).all()
+    if shape == (4, 46, 80, 240):
+        assert (g.m_tiles, g.grid, g.bn) == (123, 123, 240)
+
+
+def test_row_offset_taps_on_the_schedule_compute_the_stage():
+    """The kernel's arithmetic on the flat layout, emulated tile by tile in
+    f32 along `tile_schedule`: tap t of row m is row m + off_t (rows
+    outside the buffer zero), only the first c8 of each row's ld channels
+    read (the rest never written, here NaN), border rows written as 0; the
+    interior equals the plain version's stage on two stages, and the
+    borders stay zero."""
+    n, h, w, c = 2, 5, 6, 20
+    rng = np.random.default_rng(5)
+    wt, b, a = cc.chain_params_from_jax(_params(rng, c, 2), torch.float32)
+    x = torch.from_numpy(rng.normal(0, 0.5, (n, h, w, c)).astype(np.float32))
+    g = cc.geometry(n, h, w, c)
+    kw, kb, ka = cc.kernel_params(wt, b, a, g)
+    interior = cc.to_flat(torch.ones(n, h, w, 1), 1)[:, 0] > 0
+    offs = [(dy - 1) * (w + 2) + (dx - 1) for dy in range(3) for dx in range(3)]
+    src = cc.to_flat(x, g.ld)
+    want = x
+    for s in range(2):
+        dst = torch.full((g.rows, g.ld), float("nan"))
+        for m0, n0 in (t for blk in cc.tile_schedule(g) for t in blk):
+            rows = torch.arange(m0, m0 + cc.BM)
+            acc = torch.zeros(cc.BM, g.bn)
+            for t, off in enumerate(offs):
+                r = rows + off
+                ok = (r >= 0) & (r < g.rows)
+                tap = torch.where(ok[:, None], src[r.clamp(0, g.rows - 1), :g.c8], 0.0)
+                acc += tap @ kw[s, t, n0:n0 + g.bn, :g.c8].t()
+            acc += kb[s, n0:n0 + g.bn]
+            acc = torch.where(acc >= 0, acc, acc * ka[s, n0:n0 + g.bn])
+            keep = rows < g.rows
+            cols = min(g.bn, g.c8 - n0)
+            dst[rows[keep], n0:n0 + cols] = torch.where(
+                interior[rows[keep], None], acc[keep, :cols], 0.0)
+        want = cc.conv_stage_ref(want, wt[s], b[s], a[s], torch.float32)
+        got = cc.from_flat(dst, n, h, w, c)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert not dst[~interior, :g.c8].any() and not dst[:, c:g.c8].any()
+        src = dst

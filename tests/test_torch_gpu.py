@@ -21,6 +21,7 @@ from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_f
 from rife_tpu_torch.ops import conv_chain as cc
 from rife_tpu_torch.ops import gather_probe as gp
 from rife_tpu_torch.ops import warp as tw
+from rife_tpu_torch.ops.cuda import conv_chain as cc_cuda
 from rife_tpu_torch.tools import conv_chain as cc_tool
 from rife_tpu_torch.tools import gather_probe as gp_tool
 
@@ -421,6 +422,109 @@ def test_conv_chain_kernel_refuses_what_it_cannot_take():
         cc.conv_chain(x.float(), *params)
     with pytest.raises(ValueError):
         cc.conv_chain(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), *params)
+    assert cc.conv_chain.launches == before
+
+
+# K5's building blocks on the card, in the order they were brought up: one
+# (tap, chunk) product through TMA and wgmma, one stage on flat row counts
+# that are not a multiple of the 128-row tile, the chain on a strided input.
+_PRODUCTS = [(16, 16, 0, 0, 0, 0), (96, 96, -11, 0, 64, 1), (152, 152, 40, 0, 128, 2),
+             (240, 240, -83, 0, 192, 1), (128, 264, 5, 128, 256, 2), (240, 240, 50, 0, 0, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn,c8,m0,n0,c0,dr", _PRODUCTS,
+                         ids=[f"n{p[0]}-c{p[1]}-m{p[2]}-k{p[4]}-r{p[5]}" for p in _PRODUCTS])
+def test_conv_chain_tile_product_matches_matmul(bn, c8, m0, n0, c0, dr):
+    """One A box (136 rows at m0, which may start above the first row or
+    run past the last) and one B box (bn rows at n0) of 64 channels at c0,
+    multiplied by the kernel's wgmma from dr rows into the A box (a tap's
+    shift within its kernel row), against torch.matmul in f32 on the same
+    bf16 values with the rows and channels outside taken as 0; within the
+    f32 summation-order term of 64 exact products.  Rows are the kernel's
+    128-byte stride apart; the channels from c8 to the next multiple of 16
+    are zero and those past it NaN, which the products must not read."""
+    _need_card()
+    gen = torch.Generator().manual_seed(bn + c8)
+    ld, c16 = -(-c8 // 64) * 64, -(-c8 // 16) * 16
+    a = torch.full((180, ld), float("nan"))
+    b = torch.full((n0 + bn + 3, ld), float("nan"))
+    a[:, :c16] = b[:, :c16] = 0
+    a[:, :c8] = torch.randn(180, c8, generator=gen)
+    b[:, :c8] = torch.randn(b.shape[0], c8, generator=gen)
+    a, b = a.to("cuda", torch.bfloat16), b.to("cuda", torch.bfloat16)
+    got = cc_cuda.tile_product(a, b, c8, bn, m0, n0, c0, dr)
+    torch.cuda.synchronize()
+    rows = torch.arange(m0 + dr, m0 + dr + 128, device="cuda")
+    ok = (rows >= 0) & (rows < a.shape[0])
+    a_box = torch.where(ok[:, None], a[rows.clamp(0, a.shape[0] - 1)], 0).float()
+    a_box, b_box = a_box[:, c0:min(c0 + 64, c8)], b[n0:n0 + bn, c0:min(c0 + 64, c8)].float()
+    want = a_box @ b_box.t()
+    tol = 1e-5 * (a_box.abs() @ b_box.abs().t()) + 1e-30
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+_RAGGED = [("C = 12", 1, 7, 9, 12), ("C = 16", 2, 13, 17, 16), ("C = 90", 1, 21, 30, 90),
+           ("C = 150", 3, 9, 14, 150), ("C = 240", 2, 11, 25, 240)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _RAGGED, ids=[s[0] for s in _RAGGED])
+def test_conv_chain_one_stage_on_ragged_flat_rows(shape):
+    """One stage at each kernel width on shapes whose flat row count
+    N (H+2) (W+2) is not a multiple of 128 (the last tile is ragged):
+    within 1 bf16 ulp of the plain version plus the f32 order term."""
+    _need_card()
+    name, n, h, w, c = shape
+    assert cc.geometry(n, h, w, c).rows % 128
+    params = cc.pack_chain(cc_tool.random_convblock(c, 1, seed=c).to("cuda"))
+    cc_tool.check_chain(cc_tool.random_input(n, h, w, c, 2, "cuda"), params, name)
+
+
+@pytest.mark.gpu
+def test_conv_chain_eight_stages_on_a_strided_channels_last_input():
+    """8 stages on the NHWC view of a channels-last NCHW tensor with a
+    channel stride of 1 and padded n/y strides (a channel slice of a
+    wider one): as close to the f32 chain as the plain version."""
+    _need_card()
+    params = cc.pack_chain(cc_tool.random_convblock(90, 8, seed=4).to("cuda"))
+    wide = cc_tool.random_input(2, 19, 23, 100, 3, "cuda").permute(0, 3, 1, 2)
+    cl = wide.contiguous(memory_format=torch.channels_last)[:, 4:94].permute(0, 2, 3, 1)
+    assert cl.stride(3) == 1 and not cl.is_contiguous()
+    cc_tool.check_chain(cl, params, "strided channels-last, 8 stages")
+
+
+@pytest.mark.gpu
+def test_conv_chain_profiled_build_computes_the_same_stage():
+    """The --profile tool's build (clock64 marks) writes the same stage as
+    the served build, bit for bit, and counts every tile once."""
+    _need_card()
+    n, h, w, c = 2, 23, 31, 90
+    g = cc.geometry(n, h, w, c, cc_cuda.sm_count(0))
+    kw, kb, ka = cc.kernel_params(*cc.pack_chain(cc_tool.random_convblock(c, 2, seed=5)
+                                                 .to("cuda")), g)
+    xin = cc.to_flat(cc_tool.random_input(n, h, w, c, 5, "cuda"), g.ld)
+    served, profiled = torch.zeros_like(xin), torch.zeros_like(xin)
+    prof = torch.zeros((g.grid, cc_cuda.PROF_FIELDS), dtype=torch.int64, device="cuda")
+    cc_cuda.launch_stage(xin, served, xin, kw, kb, ka, g, 0, False)
+    cc_cuda.launch_stage(xin, profiled, xin, kw, kb, ka, g, 0, False, prof)
+    torch.cuda.synchronize()
+    assert torch.equal(served, profiled)
+    assert int(prof[:, 6].sum()) == g.tiles and bool((prof[:, 4] > 0).all())
+
+
+@pytest.mark.gpu
+def test_conv_chain_launches_once_per_stage():
+    _need_card()
+    x = cc_tool.random_input(1, 7, 9, 12, 0, "cuda")
+    for stages in (1, 2, 8):
+        params = cc.pack_chain(cc_tool.random_convblock(12, stages, seed=stages).to("cuda"))
+        before = cc.conv_chain.launches
+        cc.conv_chain(x, *params)
+        torch.cuda.synchronize()
+        assert cc.conv_chain.launches == before + stages
+    before = cc.conv_chain.launches
+    cc.conv_chain(x.cpu(), *(t.cpu() for t in params))
     assert cc.conv_chain.launches == before
 
 
