@@ -40,7 +40,10 @@ Phases, each timed against its own budget:
    pairing, on a smooth and a +-200 px block flow, bit-equal to their
    plain version and to K1 on the permuted planes; their f32 times beside
    the bytes bound, the plain version, the route through K1 and
-   F.grid_sample, and their bf16 times; then InferenceEngine("hdv2" |
+   F.grid_sample, and their bf16 times; K3's launch plan (tile, threads,
+   vector flow loads and stores) and, where it reads a channel slice (hd's
+   half-res frame), its time on a contiguous copy of the image; the
+   kernels line's K3 row names its design; then InferenceEngine("hdv2" |
    "hd") in f32 and bf16 with seeded weights (flow heads scaled) serves 3
    requests of the same pairs padded to 736x1280: each forward makes 4 K3
    + 8 K4 launches (hdv2) or 8 K3 + 8 K4 (hd) and no K1 or K2 launch (the
@@ -101,8 +104,9 @@ Phases, each timed against its own budget:
    the gathers and copies equal to their plain versions and library
    calls, the warps bit-equal to K3, to each other and to the plain
    version (also on a +-200 px block flow); then their times beside their
-   bounds, plain versions and library calls.  No launch of these kernels
-   in phases 4-9.
+   bounds, plain versions and library calls (the cb = 1 warp's row also
+   K3's time, its design and its launch plan).  No launch of these
+   kernels in phases 4-9.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -213,6 +217,18 @@ LEGACY_LAUNCHES = {  # (K3, K4) per forward
     "hd": (sum(m[7] for m in LEGACY_WARPS if m[1] < 8),
            sum(m[7] for m in LEGACY_WARPS if m[1] >= 8)),
 }
+
+
+# The designs of the NHWC warp kernels, for the kernels line (each K3
+# record's `plan` and the cb = 1 row's give the tile widths and threads).
+K3_DESIGN = ("a block per power-of-two tile of one row (grid: tiles x rows x images, no "
+             "division), a thread's pixels a block's width apart, the flow pair in one "
+             "load, taps from device memory, outputs staged in shared memory and stored as "
+             "the row's span in 16-byte stores")
+CB1_DESIGN = ("a block per power-of-two tile of one row (grid: tiles x rows x images), a "
+              "thread per 16 bytes of consecutive (pixel, channel) items, each item's pixel "
+              "by a 32-bit multiply-shift and its coordinate computed by itself, one 16-byte "
+              "store")
 
 
 def log(*a):
@@ -923,20 +939,32 @@ def time_nhwc_launch(warp_mod, dev, gen, name, c, n, h, w, stride, per_hdv2, per
     bf16_inputs = [(a.bfloat16(), f.bfloat16()) for a, f in inputs]
     bf16_ms = device_ms(warp_mod.warp, bf16_inputs)
     bf16_bound_s = (nbytes / 2) / HBM_BYTES_PER_S
+    rec = {"launch": name, "kernel": "k3" if c < 8 else "k4", "img_nhwc": [n, h, w, c],
+           "img_pixel_stride": stride, "dtype": "f32",
+           "launches_per_hdv2_forward": per_hdv2, "launches_per_hd_forward": per_hd,
+           "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "k1_route_ms": k1_route_ms,
+           "library_ms": library_ms, "library": "F.grid_sample f32",
+           "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+           else "operations", "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound_s * 1e3,
+           "grid_sample_f32_max_abs_vs_plain": lib_err}
+    extra = ""
+    if c < 8:  # K3: its launch plan, and what reading a channel slice costs it
+        from rife_tpu_torch.ops.cuda.warp_nhwc import k3_plan
+        rec["plan"] = k3_plan(*inputs[0], 0)
+        if stride != c:
+            rec["contiguous_image_ms"] = device_ms(
+                warp_mod.warp, [(a.contiguous(), f) for a, f in inputs])
+            rec["contiguous_image_bf16_ms"] = device_ms(
+                warp_mod.warp, [(a.contiguous(), f) for a, f in bf16_inputs])
+            extra = (f"; on a contiguous copy of the image {rec['contiguous_image_ms'] * 1e3:.1f}"
+                     f" us, bf16 {rec['contiguous_image_bf16_ms'] * 1e3:.1f} us")
     log(f"  {name} {(n, h, w, c)} f32: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
         f"via K1 {k1_route_ms * 1e3:.1f} us, grid_sample(f32) {library_ms * 1e3:.1f} us, "
         f"bound {bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
         f"{bound_s * 1e3 / ms:.1%} of the bound; bf16 {bf16_ms * 1e3:.1f} us "
-        f"({bf16_bound_s * 1e3 / bf16_ms:.1%} of its bound)")
-    return {"launch": name, "kernel": "k3" if c < 8 else "k4", "img_nhwc": [n, h, w, c],
-            "img_pixel_stride": stride, "dtype": "f32",
-            "launches_per_hdv2_forward": per_hdv2, "launches_per_hd_forward": per_hd,
-            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "k1_route_ms": k1_route_ms,
-            "library_ms": library_ms, "library": "F.grid_sample f32",
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-            else "operations", "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound_s * 1e3,
-            "grid_sample_f32_max_abs_vs_plain": lib_err}
+        f"({bf16_bound_s * 1e3 / bf16_ms:.1%} of its bound){extra}")
+    return rec
 
 
 def check_and_time_nhwc(warp_mod, dev):
@@ -1399,7 +1427,7 @@ def probe_rows(probes: dict, smi: str) -> list:
         "route": "cuda", "source": src, "replaces": "tools/r3_exp1.py:127",
         "launches": launches["warp_nhwc_cb1"], "max_abs_err": exact(e1["checks"][2:]),
         **{k: budget[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "k3_ms": budget["k3_ms"],
+        "k3_ms": budget["k3_ms"], "design": CB1_DESIGN, "plan": budget["plan"],
         "times_are": f"per warp of {budget['shape']} bf16 (10 chained); library: "
                      f"{budget['library']}",
         "exp2_warps": {"checks": e2["warp_checks"], "times": e2["warp_times"]},
@@ -1544,7 +1572,7 @@ def main() -> int:
         "library_ms": v425_blend["library_ms"],
         "times_are": "per v4.25 forward (one blend-only launch)",
         "per_launch": blend_records, "ab": ab, "card": smi},
-        nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232"),
+        nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232", design=K3_DESIGN),
         nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy), {
         "name": "k5", "wrapper": "rife_tpu_torch.ops.conv_chain.conv_chain",
         "route": "cuda", "source": "rife_tpu_torch/csrc/conv_chain.cu",

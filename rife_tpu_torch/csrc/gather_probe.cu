@@ -50,11 +50,22 @@
 // reference's order.  An index out of range gives NaN (bcast8: 0, as the
 // reference's sum of masked rows).
 //
-// warp_cb1.  Bound: bytes (image, flow and output once).  Design: one
-// thread per (pixel, channel), channels fastest, so a pixel's channels are
-// neighbouring threads; each thread computes the pixel's coordinate and
-// weights itself (the TPU's "index math x C") with K1's code
-// (warp_taps.cuh), so the output is K3's bit for bit.
+// warp_cb1.  Bound: bytes (image, flow and output once).  What makes it
+// the cb = 1 probe: every (pixel, channel) item loads its own pixel's flow
+// and computes the coordinate and weights itself (the TPU's "index math x
+// C") with K1's code (warp_taps.cuh), so the output is K3's bit for bit;
+// K3 (warp_nhwc.cu, a thread per pixel looping over its C channels) is
+// cb = C.  The design around that: a grid over (tile of the row, row,
+// image), so no thread divides by H or W; a tile is tile_px pixels, the
+// items of its span channels-fastest, a thread's J = 16 bytes / element
+// size consecutive items, each at pixel item / C, computed as a 32-bit
+// multiply-shift ((item * m) >> s, exact over a tile's items: the wrapper
+// finds m and s, ops/cuda/gather_probe.py cb1_plan), so each thread has
+// 4 x J independent tap loads in flight; the flow pair one 8- or 4-byte
+// load where aligned; the J outputs one 16-byte store where the wrapper
+// allows it (the span's start a multiple of 16 bytes), the ragged end
+// element by element.  64-bit bases per image, row and tap row; 32-bit
+// offsets within a row.
 
 #include "warp_taps.cuh"
 
@@ -319,44 +330,72 @@ tile_gather_kernel(const float4* __restrict__ x, const int4* __restrict__ idx,
                       gather1<K>(tile, e + 2, i.z), gather1<K>(tile, e + 3, i.w));
 }
 
-constexpr int WARP_THREADS = 256;
+constexpr int CB1_MAX_THREADS = 256;
 
 struct Strides {
   int64_t n, y, x;  // element strides; the channel stride is 1
 };
 
-template <typename T, typename F>
-__global__ void __launch_bounds__(WARP_THREADS)
+// Block (tile, y, n) warps the items of pixels xb .. xb + tile_px - 1 of
+// row y of image n; FVEC: one load per flow pair; vec_store: 16-byte
+// stores.
+template <typename T, typename F, bool FVEC>
+__global__ void __launch_bounds__(CB1_MAX_THREADS)
 warp_cb1_kernel(const T* __restrict__ img, Strides is,
                 const F* __restrict__ flow, Strides fs, T* __restrict__ out,
-                int N, int H, int W, int C) {
-  const int64_t i = (int64_t)blockIdx.x * WARP_THREADS + threadIdx.x;
-  const int64_t hw = (int64_t)H * W;
-  if (i >= N * hw * C) return;
-  const int64_t p = i / C;
-  const int c = (int)(i - p * C);
-  const int n = (int)(p / hw);
-  const int64_t rem = p - n * hw;
-  const int y = (int)(rem / W);
-  const int x = (int)(rem - (int64_t)y * W);
-  const F* f = flow + n * fs.n + y * fs.y + x * fs.x;
-  const Coords k = coords_at(x, y, load_f(f), load_f(f + 1), H, W);
-  const T* src = img + n * is.n + c;
-  const T* r0 = src + k.y0 * is.y;
-  const T* r1 = src + k.y1 * is.y;
-  store_f(out + i, blend4(load_f(r0 + k.x0 * is.x), load_f(r0 + k.x1 * is.x),
-                          load_f(r1 + k.x0 * is.x), load_f(r1 + k.x1 * is.x),
-                          k.fx, k.fy, k.gx, k.gy));
+                int H, int W, int C, int tile_px, unsigned m, int sh, int vec_store) {
+  constexpr int J = Vec<T>::V;
+  const int xb = blockIdx.x * tile_px, y = blockIdx.y, n = blockIdx.z;
+  const int items = min(tile_px, W - xb) * C;
+  const int isy = (int)is.y, isx = (int)is.x, fsx = (int)fs.x;
+  const T* src = img + n * is.n;
+  const F* frow = flow + n * fs.n + (int64_t)y * fs.y;
+  T* dst = out + (((int64_t)n * H + y) * W + xb) * C;
+  for (int l0 = threadIdx.x * J; l0 < items; l0 += blockDim.x * J) {
+    float v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      // An item past the span's end takes its last item and stores nothing.
+      const int l = min(l0 + j, items - 1);
+      const int xl = (int)(((unsigned)l * m) >> sh);
+      const int c = l - xl * C;
+      const int x = xb + xl;
+      float dx, dy;
+      load_pair<FVEC>(frow + x * fsx, dx, dy);
+      const Coords k = coords_at(x, y, dx, dy, H, W);
+      const T* r0 = src + (int64_t)k.y0 * isy + c;
+      const T* r1 = src + (int64_t)k.y1 * isy + c;
+      const int a = k.x0 * isx, b = k.x1 * isx;
+      v[j] = blend4(load_f(r0 + a), load_f(r0 + b), load_f(r1 + a), load_f(r1 + b), k.fx,
+                    k.fy, k.gx, k.gy);
+    }
+    if (vec_store && l0 + J <= items) {
+      Vec<T>::store(dst + l0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (l0 + j < items) store_f(dst + l0 + j, v[j]);
+    }
+  }
 }
 
 template <typename T, typename F>
 int launch_warp_cb1(const void* img, Strides is, const void* flow, Strides fs,
-                    void* out, int N, int H, int W, int C, cudaStream_t s) {
-  const int64_t threads = (int64_t)N * H * W * C;
-  const unsigned blocks = (unsigned)((threads + WARP_THREADS - 1) / WARP_THREADS);
-  warp_cb1_kernel<T, F><<<blocks, WARP_THREADS, 0, s>>>(
-      static_cast<const T*>(img), is, static_cast<const F*>(flow), fs,
-      static_cast<T*>(out), N, H, W, C);
+                    void* out, int N, int H, int W, int C, int tiles, int threads,
+                    int tile_px, unsigned m, int sh, int flow_vec, int vec_store,
+                    cudaStream_t s) {
+  if (threads < 1 || threads > CB1_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles, H, N);
+  const T* im = static_cast<const T*>(img);
+  const F* fl = static_cast<const F*>(flow);
+  T* o = static_cast<T*>(out);
+  if (flow_vec) {
+    warp_cb1_kernel<T, F, true><<<grid, threads, 0, s>>>(im, is, fl, fs, o, H, W, C,
+                                                         tile_px, m, sh, vec_store);
+  } else {
+    warp_cb1_kernel<T, F, false><<<grid, threads, 0, s>>>(im, is, fl, fs, o, H, W, C,
+                                                          tile_px, m, sh, vec_store);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -434,21 +473,28 @@ extern "C" int gather_probe_tile_gather(const void* x, const void* idx, void* y,
   return (int)cudaGetLastError();
 }
 
-// warp_cb1: as warp_nhwc_k3_<T> (warp_nhwc.cu): image strides (isn, isy,
-// isx) and flow strides (fsn, fsy, fsx) in elements, channel strides 1;
-// out a contiguous (N, H, W, C) tensor of the image's type.
+// warp_cb1: image strides (isn, isy, isx) and flow strides (fsn, fsy, fsx)
+// in elements, channel strides 1; out a contiguous (N, H, W, C) tensor of
+// the image's type.  The geometry from the wrapper (ops/cuda/gather_probe.py
+// cb1_plan): a grid of (tiles, H, N) blocks of `threads` threads, tiles of
+// `tile_px` pixels, a tile's item l at pixel (l * m) >> sh; `flow_vec`: one
+// load per flow pair; `vec_store`: 16-byte stores.
 #define RIFE_CB1_ENTRY(SUFFIX, T)                                              \
   extern "C" int gather_probe_warp_cb1_##SUFFIX(                               \
       const void* img, int64_t isn, int64_t isy, int64_t isx,                  \
       const void* flow, int64_t fsn, int64_t fsy, int64_t fsx, void* out,      \
-      int N, int H, int W, int C, int flow_is_bf16, void* stream) {            \
+      int N, int H, int W, int C, int flow_is_bf16, int tiles, int threads,    \
+      int tile_px, unsigned m, int sh, int flow_vec, int vec_store,            \
+      void* stream) {                                                          \
     const Strides is{isn, isy, isx}, fs{fsn, fsy, fsx};                        \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
     return flow_is_bf16                                                        \
-               ? launch_warp_cb1<T, __nv_bfloat16>(img, is, flow, fs, out, N,  \
-                                                   H, W, C, s)                 \
+               ? launch_warp_cb1<T, __nv_bfloat16>(                            \
+                     img, is, flow, fs, out, N, H, W, C, tiles, threads,       \
+                     tile_px, m, sh, flow_vec, vec_store, s)                   \
                : launch_warp_cb1<T, float>(img, is, flow, fs, out, N, H, W, C, \
-                                           s);                                 \
+                                           tiles, threads, tile_px, m, sh,     \
+                                           flow_vec, vec_store, s);            \
   }
 
 RIFE_CB1_ENTRY(f32, float)

@@ -1,10 +1,10 @@
 // What the warp kernels share: typed loads and stores, and the sampling
 // coordinate, tap indices and bilinear weights of one output pixel.
 //
-// Included by warp_planes.cu (K1's forward), warp_blend.cu (K2) and
-// warp_nhwc.cu (K3, K4), so that K2's two warped images and K3/K4's NHWC
-// warps are K1's outputs bit for bit, and by warp_planes_bwd.cu for the
-// loads and stores.  Semantics (rife_tpu's
+// Included by warp_planes.cu (K1's forward), warp_blend.cu (K2),
+// warp_nhwc.cu (K3, K4) and gather_probe.cu (K6c), so that K2's two warped
+// images and the NHWC warps are K1's outputs bit for bit, and by
+// warp_planes_bwd.cu for the loads and stores.  Semantics (rife_tpu's
 // warp_xla_planes): the pixel (x, y) samples at (clamp(x + dx, 0, W-1),
 // clamp(y + dy, 0, H-1)) with x1 = min(x0+1, W-1), y1 = min(y0+1, H-1);
 // coordinates are f32 even for a bf16 flow.
@@ -24,6 +24,72 @@ __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+
+// A pixel's flow pair (dx, dy): one 8-byte (f32) or 4-byte (bf16) load
+// where VEC (the caller has checked that the pair's address is a multiple
+// of its size), else two scalar loads.
+template <bool VEC>
+__device__ __forceinline__ void load_pair(const float* p, float& dx, float& dy) {
+  if (VEC) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    dx = v.x;
+    dy = v.y;
+  } else {
+    dx = __ldg(p);
+    dy = __ldg(p + 1);
+  }
+}
+template <bool VEC>
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& dx, float& dy) {
+  if (VEC) {
+    const float2 v = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+    dx = v.x;
+    dy = v.y;
+  } else {
+    dx = load_f(p);
+    dy = load_f(p + 1);
+  }
+}
+
+// 16 bytes of T as V floats: one load through the read-only path, one
+// store (the address a multiple of 16 bytes).
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int V = 4;
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
 
 // v rounded to T and back: what storing v as a T and reading it back gives.
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }

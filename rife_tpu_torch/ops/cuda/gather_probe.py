@@ -19,13 +19,17 @@ import functools
 import torch
 
 from rife_tpu_torch.ops.cuda import _build
-from rife_tpu_torch.ops.cuda.warp_nhwc import _check as _check_nhwc
+from rife_tpu_torch.ops.cuda import warp_nhwc as _nhwc
 
 SOURCES = ("gather_probe",)
 _IMG_TYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 MICRO_UNROLLS = (1, 32)  # the block form's instantiations: r3_exp1.py's loop, r3_exp2.py's
 MICRO_WARP_UNROLLS = (1,)  # the warp form's
 _ALIGN = 16
+CB1_TILE_PX = 256  # pixels of a row per block at most
+CB1_TILE_ITEMS = 32768  # a tile's (pixel, channel) items at most: the multiply-shift's domain
+CB1_MAX_C = 256  # the widest image the cb = 1 warp takes (the port's widest warp)
+CB1_MAX_THREADS = 256
 
 
 @functools.lru_cache(maxsize=1)
@@ -40,7 +44,7 @@ def library() -> ctypes.CDLL:
     strided = [vp] + [i64] * 3  # pointer, n/y/x strides
     for t in _IMG_TYPES.values():
         getattr(lib, f"gather_probe_warp_cb1_{t}").argtypes = \
-            strided * 2 + [vp] + [i32] * 5 + [vp]
+            strided * 2 + [vp] + [i32] * 8 + [ctypes.c_uint32] + [i32] * 3 + [vp]
     for f in ("micro", "select_rows", "tile_gather", "warp_cb1_f32", "warp_cb1_bf16"):
         getattr(lib, f"gather_probe_{f}").restype = ctypes.c_int
     return lib
@@ -119,16 +123,55 @@ def launch_tile_gather(x: torch.Tensor, idx: torch.Tensor, kind: int) -> torch.T
     return out
 
 
+def div_magic(d: int, limit: int) -> tuple[int, int]:
+    """(m, s) with (l * m) >> s == l // d for every 0 <= l < limit and
+    l * m < 2^32, so that the kernel divides in 32-bit unsigned
+    arithmetic: the smallest s for which m = ceil(2^s / d) keeps the
+    error (limit - 1) * (m * d - 2^s) below 2^s (then no l < limit
+    reaches the next multiple's floor) and (limit - 1) * m below 2^32."""
+    for s in range(32):
+        m = -(-(1 << s) // d)
+        if (limit - 1) * (m * d - (1 << s)) < (1 << s) and (limit - 1) * m < 1 << 32:
+            return m, s
+    raise ValueError(f"no 32-bit multiply-shift divides by {d} below {limit}")
+
+
+def cb1_plan(img: torch.Tensor, flow: torch.Tensor, out_ptr: int) -> dict:
+    """The cb = 1 warp's launch for `img`/`flow` into a contiguous output at
+    `out_ptr`: tiles of `tile_px` pixels (a power of two up to CB1_TILE_PX,
+    no wider than the row's next power of two, and at most CB1_TILE_ITEMS
+    items), `threads` (a multiple of 32, up to CB1_MAX_THREADS, each
+    taking runs of 16 bytes of items until the tile's span ends), the
+    multiply-shift (m, s) that maps a tile's item to its pixel, whether the
+    flow pairs and the stores are vector accesses.  Raises on C above
+    CB1_MAX_C and on what the grid cannot hold."""
+    n, h, w, c = img.shape
+    if c > CB1_MAX_C:
+        raise ValueError(f"the cb = 1 warp takes up to {CB1_MAX_C} channels, got C = {c}")
+    elem = img.element_size()
+    tile = min(CB1_TILE_PX, 1 << (CB1_TILE_ITEMS // c).bit_length() - 1,
+               _nhwc.pow2_ceil(w))
+    _nhwc.check_extent(img, flow, tile)
+    runs = -(-tile * c * elem // _ALIGN)
+    m, sh = div_magic(c, tile * c)
+    return {"tiles": -(-w // tile), "threads": min(CB1_MAX_THREADS, -(-runs // 32) * 32),
+            "tile_px": tile, "m": m, "s": sh, "flow_vec": _nhwc.flow_vector_loads(flow),
+            "vec_store": _nhwc.vector_stores(w, c, elem, tile, out_ptr)}
+
+
 def launch_warp_cb1(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """As `warp_nhwc.launch_k3` (the same checks: bf16/f32, channel strides
-    1, n/y/x strides read as given), one thread per (pixel, channel)."""
-    _check_nhwc(img, flow)
+    1, n/y/x strides read as given), each (pixel, channel) item computing
+    its pixel's coordinate itself (`cb1_plan`)."""
+    _nhwc._check(img, flow)
     n, h, w, c = img.shape
-    out = torch.empty((n, h, w, c), dtype=img.dtype, device=img.device)
+    out = _nhwc._out(img)
+    p = cb1_plan(img, flow, out.data_ptr())
     fn = getattr(library(), f"gather_probe_warp_cb1_{_IMG_TYPES[img.dtype]}")
     with torch.cuda.device(img.device):
         err = fn(img.data_ptr(), *img.stride()[:3], flow.data_ptr(), *flow.stride()[:3],
-                 out.data_ptr(), n, h, w, c, int(flow.dtype == torch.bfloat16),
-                 _stream(img))
+                 out.data_ptr(), n, h, w, c, int(flow.dtype == torch.bfloat16), p["tiles"],
+                 p["threads"], p["tile_px"], p["m"], p["s"], int(p["flow_vec"]),
+                 int(p["vec_store"]), _stream(img))
     _raise_on(err, "warp_cb1")
     return out

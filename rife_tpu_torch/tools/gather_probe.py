@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from rife_tpu_torch.ops import gather_probe as gp
+from rife_tpu_torch.ops.cuda.gather_probe import cb1_plan
 from rife_tpu_torch.ops.resize import resize_bilinear
 from rife_tpu_torch.ops.warp import warp_nhwc_k3, warp_nhwc_k4, warp_planes, warp_ref
 from rife_tpu_torch.utils.profiling import graph_ms
@@ -487,7 +488,7 @@ def time_budget(e1: dict) -> dict:
                      library_ms=graph_ms(lambda a, g: F.grid_sample(
                          a, g, mode="bilinear", padding_mode="border", align_corners=True),
                          lib_in, 2),
-                     library="F.grid_sample, f32")
+                     library="F.grid_sample, f32", plan=cb1_plan(img, flow, 0))
     rec["k3_of_bound"] = rec["bound_ms"] / rec["k3_ms"]
     print(f"  warp budget sweep {tuple(img.shape)} bf16, per warp of {EXP1_CHAIN} chained: "
           f"cb = 1 {rec['ms'] * 1e3:.1f} us ({rec['of_bound']:.1%}), K3 (cb = C) "

@@ -604,6 +604,90 @@ def test_probe_cb1_warp_is_k3_bit_for_bit(dtype, flow_dtype, kind, c, stride):
     assert torch.equal(got, tw.warp_ref(img, flow))
 
 
+def _misaligned(rng, n, h, w, c, kind, dtype, flow_dtype, layout):
+    """An NHWC image and flow whose addresses or strides rule out the vector
+    paths: "flow_slice", the flow a 2-channel slice of a 3-channel tensor
+    (pixel stride 3, one scalar load per value); "image_offset", the image
+    a view one element past its storage's start."""
+    flow = np.ascontiguousarray(_flow(rng, n, h, w, kind).astype(np.float32).transpose(0, 2, 3, 1))
+    flow = torch.from_numpy(flow).cuda().to(flow_dtype)
+    img = torch.from_numpy(rng.normal(0, 2, (n, h, w, c)).astype(np.float32)).cuda().to(dtype)
+    if layout == "flow_slice":
+        flow = torch.cat([flow, torch.zeros_like(flow[..., :1])], -1)[..., :2]
+    else:
+        buf = torch.empty(img.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = img.reshape(-1)
+        img = buf[1:].view(n, h, w, c)
+    return img, flow
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("layout", ["flow_slice", "image_offset"])
+def test_k3_and_cb1_at_ragged_widths_and_misaligned_views(dtype, flow_dtype, layout):
+    """K3 and the cb = 1 warp bit-equal to the plain version, to K1 on the
+    permuted planes and to each other at widths around their 128- and
+    256-pixel tiles (a ragged last tile, 16-byte stores or element stores
+    by width), on smooth, out-of-frame and +-200 px block flows, with the
+    flow read value by value or the image off its storage's alignment."""
+    _need_card()
+    rng = np.random.default_rng(len(layout))
+    for w in (1, 2, 127, 128, 129, 255, 256, 257, 520):
+        for kind in ("smooth", "out_of_frame", "blocks"):
+            img, flow = _misaligned(rng, 2, 9, w, 3, kind, dtype, flow_dtype, layout)
+            k3 = tw.warp_nhwc_k3(img, flow)
+            cb1 = gp.warp_nhwc_cb1(img, flow)
+            want = tw.warp_ref(img, flow)
+            planes = tw.warp_planes(img.permute(0, 3, 1, 2).contiguous(),
+                                    flow.permute(0, 3, 1, 2).contiguous())
+            torch.cuda.synchronize()
+            assert k3.dtype == dtype and k3.is_contiguous() and cb1.is_contiguous()
+            assert torch.equal(k3, want), (w, kind)
+            assert torch.equal(cb1, want), (w, kind)
+            assert torch.equal(k3, planes.permute(0, 2, 3, 1)), (w, kind)
+
+
+@pytest.mark.gpu
+def test_k3_bf16_past_2_31_output_elements():
+    """760 bf16 frames of 736x1280x3 (2.15e9 elements, over 2^31): the
+    images' and rows' 64-bit bases, with 32-bit offsets within a row.  The
+    first and last frames bit-equal to K3 and the plain version on those
+    frames alone."""
+    _need_card()
+    n, h, w = 760, 736, 1280
+    assert n * h * w * 3 > 2 ** 31
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    img = torch.rand(n, h, w, 3, device="cuda", generator=gen, dtype=torch.bfloat16)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    phase = torch.arange(n, device="cuda", dtype=torch.float32).view(n, 1, 1)
+    flow = torch.stack([(9 * torch.sin(yy / 40 + phase)).expand(n, h, w),
+                        (7 * torch.cos(xx / 60 + phase)).expand(n, h, w)], -1).bfloat16()
+    out = tw.warp_nhwc_k3(img, flow)
+    for i in (0, n - 1):
+        one = tw.warp_nhwc_k3(img[i:i + 1].clone(), flow[i:i + 1].clone())
+        want = tw.warp_ref(img[i:i + 1], flow[i:i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(out[i:i + 1], one) and torch.equal(one, want), i
+
+
+@pytest.mark.gpu
+def test_k3_and_cb1_launch_once_per_call():
+    _need_card()
+    img = torch.rand(2, 16, 300, 3, device="cuda")
+    flow = torch.randn(2, 16, 300, 2, device="cuda") * 4
+    for fn, counter in ((tw.warp_nhwc_k3, tw.warp_nhwc_k3), (tw.warp, tw.warp_nhwc_k3),
+                        (gp.warp_nhwc_cb1, gp.warp_nhwc_cb1)):
+        before = (tw.warp_nhwc_k3.launches, tw.warp_nhwc_k4.launches,
+                  gp.warp_nhwc_cb1.launches, tw.warp_planes.launches)
+        fn(img, flow)
+        after = (tw.warp_nhwc_k3.launches, tw.warp_nhwc_k4.launches,
+                 gp.warp_nhwc_cb1.launches, tw.warp_planes.launches)
+        assert [a - b for a, b in zip(after, before)] == [
+            int(counter is tw.warp_nhwc_k3), 0, int(counter is gp.warp_nhwc_cb1), 0]
+
+
 @pytest.mark.gpu
 def test_probe_kernels_refuse_what_they_cannot_take():
     _need_card()
