@@ -11,13 +11,15 @@ Phases, each timed against its own budget:
    convblock chain K5 and the gather probes K6-K8), one process each in
    parallel, into
    build/rife_tpu_torch/ (registers and spills from -Xptxas -v);
-3. kernels: the warp kernel against its plain PyTorch version, on the
-   card, at the shapes one forward of the paper model's serving path
-   gives it (bf16), plus one f32 shape and a +-200 px per-8x8-block flow
-   that leaves the frame; the fused warp + blend kernel against its plain
-   version at its two serving launches (v4.25's blend-only, the paper
-   model's with the pair; bf16), in f32 and with the block flow; kernel,
-   plain-version and library times beside the memory bound;
+3. kernels: the warp kernel (K1) against its plain PyTorch version, on
+   the card, at the shapes one forward of the paper model's serving path
+   and one rung-1 forward of v4.25 give it (bf16), plus one f32 shape and
+   a +-200 px per-8x8-block flow that leaves the frame; the fused warp +
+   blend kernel against its plain version at its two serving launches
+   (v4.25's blend-only, the paper model's with the pair; bf16), in f32
+   and with the block flow; kernel, plain-version and library times
+   beside the memory bound, and K1's launch plan at each shape (tiles,
+   threads, pixels a thread, channel groups, vector runs);
 4. main path: InferenceEngine("rife", fast=1, bf16) with the r5 weights
    serves 3 requests of 4 pairs of 720p content (padded to 736x1280);
    each forward must launch the warp kernel 6 times and the fused kernel
@@ -30,8 +32,6 @@ Phases, each timed against its own budget:
    at rung 0: 4 warp launches and 1 final launch (fused, or a 5th warp)
    per forward, >= 40 dB against the port's own f32, timestep 0.25 gives
    another frame than 0.5, the f32 card output agrees with the CPU path;
-   the warp kernel against its plain version at v4.25's 7-channel launch
-   shapes;
 6. A/B: both models' rung-1 requests with the fused final level and with
    the composed one, interleaved, by CUDA events: the numbers that set
    `use_fuse_blend`'s default;
@@ -53,7 +53,11 @@ Phases, each timed against its own budget:
 8. train: the gradient kernel against its plain version at the 8 warp
    shapes of one training step (batch 16, 224x224 crops, N = 32) in bf16,
    once in f32 and once with the +-200 px block flow, timed beside its
-   bytes bound, the plain version and grid_sampler_2d_backward; then the
+   bytes bound, the plain version and grid_sampler_2d_backward, with its
+   launch plan (tile, threads, channel groups), the share of pixels that
+   handed their right taps of d_img to their neighbour (the kernel's own
+   count) and the call's device time split into the d_img scratch's
+   memset, the kernel and the cast; then the
    training path: the r5 run resumed (params, AdamW state, step 16000)
    trains one warm-up and 10 timed bf16 steps on SyntheticTriplets
    (ms/step, samples/s; 8 forward and 8 backward warp launches per step
@@ -225,6 +229,18 @@ K3_DESIGN = ("a block per power-of-two tile of one row (grid: tiles x rows x ima
              "division), a thread's pixels a block's width apart, the flow pair in one "
              "load, taps from device memory, outputs staged in shared memory and stored as "
              "the row's span in 16-byte stores")
+K1_DESIGN = ("32-bit in-plane offsets, taps from device memory; C = 3: a grid of (row "
+             "tile, row block, image), no division, a thread's run of 2 consecutive "
+             "pixels, the dx/dy runs and each channel's 2 outputs as 4-byte accesses where "
+             "aligned, channels unrolled; feature maps: a grid of (256-pixel block, group "
+             "of 16 channels, image), a pixel a thread (one 32-bit division a thread)")
+BWD_DESIGN = ("a block of 256 threads per 2-D tile of one image's pixels and all its "
+              "channels (threads = pixel x channel group, a warp one group's 32 pixels, no "
+              "division, 32-bit in-plane offsets); d_flow summed in registers and across "
+              "groups in shared memory in a fixed order, written once (one launch); d_img "
+              "by global reductions into an f32 scratch (zeroed before, cast after), tap "
+              "by tap, a lane's right taps handed to its right neighbour by a shuffle "
+              "where they are that neighbour's left taps")
 CB1_DESIGN = ("a block per power-of-two tile of one row (grid: tiles x rows x images), a "
               "thread per 16 bytes of consecutive (pixel, channel) items, each item's pixel "
               "by a 32-bit multiply-shift and its coordinate computed by itself, one 16-byte "
@@ -336,7 +352,10 @@ def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
     """The warp kernel against its plain version at one launch shape of a
     serving path (bf16 image and flow; signed, larger values for feature
     channels), timed beside its bound, the plain version and F.grid_sample.
-    `counts` (launches per forward of a path) go into the record."""
+    `counts` (launches per forward of a path) go into the record, with
+    K1's launch plan."""
+    from rife_tpu_torch.ops.cuda import warp as cuda_warp
+
     amp = 8.0 * w / 1280
     img = torch.rand(n, c, h, w, device=dev, generator=gen).to(torch.bfloat16)
     if c > 3:  # context or encoder features: signed, larger
@@ -360,6 +379,7 @@ def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
         f"grid_sample(f32) {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.1f} us "
         f"({nbytes / 1e6:.1f} MB) -> {bound_s * 1e3 / ms:.1%} of the bound")
     return {"launch": name, "img": [n, c, h, w], "dtype": "bf16", **counts,
+            "plan": cuda_warp.k1_plan(img, flow, 0),
             "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
@@ -369,13 +389,17 @@ def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
 
 def check_and_time_kernel(warp_mod, dev):
     """Phase 3, the warp kernel: returns the per-shape records of the paper
-    model's serving launches and the largest error."""
+    model's serving launches, those of v4.25's, and the largest error."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     records = [time_fwd_launch(warp_mod, dev, gen, name, 2 * BATCH, c, h, w,
                                launches_per_forward=count)
                for name, c, h, w, count in MAIN_PATH_WARPS]
-    worst = max(r["max_abs_err"] for r in records)
+    v425_records = [time_fwd_launch(warp_mod, dev, gen, f"v4.25 {name}", 2 * BATCH, c, h,
+                                    w, launches_per_rung1_forward=r1,
+                                    launches_per_rung0_forward=r0)
+                    for name, c, h, w, r1, r0 in V425_WARPS]
+    worst = max(r["max_abs_err"] for r in records + v425_records)
 
     def compare(img, flow, label):
         nonlocal worst
@@ -391,7 +415,7 @@ def check_and_time_kernel(warp_mod, dev):
     for dtype in (torch.bfloat16, torch.float32):
         compare(big.to(dtype), block_flow(n, 736, 1280, gen, dev, dtype),
                 f"+-200 px 8x8-block flow {tuple(big.shape)} {dtype}")
-    return records, worst
+    return records, v425_records, worst
 
 
 def ulp(v: torch.Tensor, dtype) -> torch.Tensor:
@@ -530,8 +554,13 @@ def check_and_time_bwd_kernel(warp_mod, dev):
     image and flow dtypes the step passes; the backward also once in f32
     and with a +-200 px per-8x8-block flow in each dtype pairing; and the
     backward's time beside its bytes bound, the plain version's and
-    grid_sampler_2d_backward's.  Returns the per-shape records, the
-    backward's largest error and the forward's."""
+    grid_sampler_2d_backward's, its launch plan, the share of its tiles
+    that summed d_img in shared memory and its call's memset / kernel /
+    cast split.  Returns the per-shape records, the backward's largest
+    error and the forward's."""
+    from rife_tpu_torch.ops.cuda import warp as cuda_warp
+    from rife_tpu_torch.tools.warp_planes import bwd_split_ms, merge_share
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     records, worst, worst_fwd = [], 0.0, 0.0
@@ -594,6 +623,8 @@ def check_and_time_bwd_kernel(warp_mod, dev):
         inputs = [(img.clone(), flow.clone(), g.clone(), need_img, True)
                   for _ in range(copies)]
         ms = device_ms(warp_mod.warp_planes_bwd, inputs)
+        split = bwd_split_ms(img, flow, g, need_img)
+        share = merge_share(img, flow, g, need_img)
         plain_ms = device_ms(warp_mod.warp_planes_bwd_ref, inputs)
         mask = [need_img, True]
         lib_inputs = [(b.float(), a.float(), grid_for(f), 0, 1, True, mask)
@@ -601,7 +632,10 @@ def check_and_time_bwd_kernel(warp_mod, dev):
         library_ms = device_ms(torch.ops.aten.grid_sampler_2d_backward, lib_inputs)
         records.append({
             "launch": name, "img": [n, c, h, w], "dtype": "bf16",
-            "flow_dtype": str(flow_dtype).replace("torch.", ""), "need_img": need_img, "launches_per_step": count, "bytes": nbytes,
+            "flow_dtype": str(flow_dtype).replace("torch.", ""), "need_img": need_img,
+            "launches_per_step": count, "bytes": nbytes,
+            "plan": cuda_warp.bwd_plan(img.shape), "merged_tap_share": share,
+            **{f"split_{k}": v for k, v in split.items()},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
@@ -609,7 +643,9 @@ def check_and_time_bwd_kernel(warp_mod, dev):
         log(f"  {name}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
             f"grid_sampler_2d_backward(f32) {library_ms * 1e3:.1f} us, bound "
             f"{bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
-            f"{bound_s * 1e3 / ms:.1%} of the bound")
+            f"{bound_s * 1e3 / ms:.1%} of the bound; split: memset "
+            f"{split['memset_ms'] * 1e3:.1f} us, kernel {split['kernel_ms'] * 1e3:.1f}, "
+            f"cast {split['cast_ms'] * 1e3:.1f}; pixels merging their right taps {share}")
         del inputs, lib_inputs
 
     c, h, w = 16, TRAIN_CROP // 2, TRAIN_CROP // 2
@@ -749,10 +785,9 @@ def main_path(dev, warp_mod):
     return rec, {"eng": eng, "a": a, "b": b, "pad": pad, "out32": out32}
 
 
-def v425_path(dev, warp_mod, gen):
-    """Phase 5: v4.25 serving at rungs 1 and 0 (see the module docstring),
-    and the warp kernel at v4.25's launch shapes.  Returns the records and
-    what the A/B needs."""
+def v425_path(dev, warp_mod):
+    """Phase 5: v4.25 serving at rungs 1 and 0 (see the module docstring).
+    Returns the records and what the A/B needs."""
     from rife_tpu_torch.engine import (InferenceEngine, load_checkpoint,
                                        state_dict_from_jax)
     from rife_tpu_torch.ops import pad_to_multiple
@@ -807,10 +842,7 @@ def v425_path(dev, warp_mod, gen):
     if not diff <= 1e-3:
         raise AssertionError("the card's v4.25 f32 result disagrees with the CPU path")
     rec["f32_card_vs_cpu_max_abs"] = diff
-    records = [time_fwd_launch(warp_mod, dev, gen, f"v4.25 {name_}", 2 * BATCH, c, h, w,
-                               launches_per_rung1_forward=r1, launches_per_rung0_forward=r0)
-               for name_, c, h, w, r1, r0 in V425_WARPS]
-    return rec, records, keep
+    return rec, keep
 
 
 def ab_path(warp_mod, paths):
@@ -1476,17 +1508,14 @@ def main() -> int:
         cuda_probe.library()
 
     with Phase("kernels"):
-        records, worst = check_and_time_kernel(warp_mod, dev)
+        records, v425_records, worst = check_and_time_kernel(warp_mod, dev)
         blend_records, blend_worst = check_and_time_blend(warp_mod, dev)
 
     with Phase("main path"):
         main, rife_keep = main_path(dev, warp_mod)
 
     with Phase("v4.25"):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(3)
-        v425, v425_records, v425_keep = v425_path(dev, warp_mod, gen)
-        worst = max([worst] + [r["max_abs_err"] for r in v425_records])
+        v425, v425_keep = v425_path(dev, warp_mod)
 
     with Phase("A/B"):
         ab = ab_path(warp_mod, {"rife": rife_keep, "v4.25": v425_keep})
@@ -1544,8 +1573,11 @@ def main() -> int:
         "ms": per_fwd(records, "ms"), "plain_ms": per_fwd(records, "plain_ms"),
         "bound_ms": per_fwd(records, "bound_ms"), "bound_by": bound_by(records),
         "library_ms": per_fwd(records, "library_ms"),
+        "share_of_bound": per_fwd(records, "bound_ms") / per_fwd(records, "ms"),
         "times_are": "per rife serving forward (rung 1: 6 launches, the final "
                      "level fused)",
+        "design": K1_DESIGN,
+        "plan": {r["launch"]: r["plan"] for r in records + v425_records},
         "v425_rung1_forward": {k: per_fwd(v425_records, k, "launches_per_rung1_forward")
                                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "per_launch": records + v425_records, "main_path": main, "v425_path": v425,
@@ -1560,6 +1592,11 @@ def main() -> int:
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"), "bound_by": bound_by(bwd_records),
         "library_ms": per_step("library_ms"), "times_are": "per training step",
+        "share_of_bound": per_step("bound_ms") / per_step("ms"),
+        "design": BWD_DESIGN,
+        "plan": {r["launch"]: r["plan"] for r in bwd_records},
+        "split_per_step": {k: per_step(f"split_{k}") for k in
+                           ("memset_ms", "kernel_ms", "cast_ms", "call_ms")},
         "per_launch": bwd_records, "train_path": train, "card": smi}, {
         "name": "warp_blend", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_blend.cu",

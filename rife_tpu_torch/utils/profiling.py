@@ -28,9 +28,9 @@ CLASSES = ("warp forward (CUDA, hand-written)", "warp backward (CUDA, hand-writt
 
 def classify(name: str) -> str:
     low = name.lower()
-    if "warp_planes_bwd_kernel" in low or "sum_runs_kernel" in low:
+    if "warp_planes_bwd_kernel" in low:
         return CLASSES[1]
-    if "warp_planes_kernel" in low:
+    if "warp_planes_kernel" in low or "warp_planes_flat_kernel" in low:
         return CLASSES[0]
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return CLASSES[2]

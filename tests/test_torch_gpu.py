@@ -22,6 +22,7 @@ from rife_tpu_torch.ops import conv_chain as cc
 from rife_tpu_torch.ops import gather_probe as gp
 from rife_tpu_torch.ops import warp as tw
 from rife_tpu_torch.ops.cuda import conv_chain as cc_cuda
+from rife_tpu_torch.ops.cuda import warp as tw_cuda
 from rife_tpu_torch.tools import conv_chain as cc_tool
 from rife_tpu_torch.tools import gather_probe as gp_tool
 
@@ -162,6 +163,155 @@ def test_warp_on_the_card_has_a_gradient_through_the_kernel():
     (tw.warp_planes(ri, rf) * wts.cpu()).sum().backward()
     np.testing.assert_allclose(ti.grad.cpu().numpy(), ri.grad.numpy(), rtol=0, atol=1e-5)
     np.testing.assert_allclose(tf.grad.cpu().numpy(), rf.grad.numpy(), rtol=0, atol=1e-4)
+
+
+def _assert_bwd_within_bound(img, flow, g, got, need_img):
+    """The gradient kernel's (d_img, d_flow) against the plain version's f32
+    result: within 1e-5 of the sum of the terms' magnitudes, plus one bf16
+    ulp for a bf16 result (test_backward_kernel_matches_plain_version's
+    bound)."""
+    want = tw.warp_planes_bwd_ref(img.float(), flow.float(), g.float(), need_img, True)
+    scale = tw._bwd_term_scale(img, flow, g)
+    torch.cuda.synchronize()
+    for k, w, m in zip(got, want, scale):
+        assert (k is None) == (w is None)
+        if k is None:
+            continue
+        lim = 1e-5 * m.cpu().numpy()
+        if k.dtype == torch.bfloat16:
+            lim = lim + _bf16_ulp(w.cpu().numpy())
+        err = (k.float() - w).abs().cpu().numpy()
+        assert np.all(err <= lim), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("c", [3, 16])
+def test_backward_kernel_merges_taps_where_the_host_replay_says(dtype, flow_dtype, c):
+    """On a flow that is a constant fractional shift on the left half of the
+    frame and +-200 px random per 8x8 block on the right half, one launch
+    hands the smooth pixels' right taps of d_img to their neighbours and
+    adds the rest tap by tap: the kernel's own count of each equals the
+    host's replay (`tap_merges`), both occur, and d_img and d_flow are
+    within the plain version's bound."""
+    _need_card()
+    rng = np.random.default_rng(11 + c)
+    n, h, w = 2, 48, 192
+    img = torch.from_numpy(rng.normal(0, 2, (n, c, h, w)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32))
+    img, g = (t.cuda().to(dtype) for t in (img, g))
+    f = _flow(rng, n, h, w, "blocks").astype(np.float32)
+    f[:, :, :, : w // 2] = np.array([[2.3, -1.6], [-4.7, 0.2]], np.float32)[:, :, None, None]
+    flow = torch.from_numpy(f).cuda().to(flow_dtype)
+    merges = torch.zeros(2, dtype=torch.int32, device="cuda")
+    got = tw_cuda.launch_bwd(img, flow, g, True, True, merges=merges)
+    gave, kept = tw_cuda.tap_merges(flow, tw_cuda.bwd_plan(img.shape))
+    assert tuple(merges.tolist()) == (gave, kept)
+    assert gave > 0 and kept > 0
+    _assert_bwd_within_bound(img, flow, g, got, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+def test_backward_d_flow_is_the_same_bit_for_bit_across_calls(dtype, flow_dtype):
+    """d_flow from three calls, with and without d_img, is the same bit for
+    bit: the channel order of its sums is the plan's; and within the plain
+    version's bound."""
+    _need_card()
+    rng = np.random.default_rng(12)
+    n, c, h, w = 2, 24, 40, 136
+    img = torch.from_numpy(rng.normal(0, 2, (n, c, h, w)).astype(np.float32)).cuda().to(dtype)
+    g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32)).cuda().to(dtype)
+    flow = torch.from_numpy(_flow(rng, n, h, w, "blocks").astype(np.float32))
+    flow = flow.cuda().to(flow_dtype)
+    first = tw_cuda.launch_bwd(img, flow, g, True, True)
+    second = tw_cuda.launch_bwd(img, flow, g, True, True)
+    third = tw_cuda.launch_bwd(img, flow, g, False, True)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[1], third[1])
+    _assert_bwd_within_bound(img, flow, g, first, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+def test_k1_and_gradient_at_ragged_widths(dtype, flow_dtype):
+    """Widths that are no multiple of 8 and narrower than a tile: K1 at each
+    layout and number of pixels a thread bit-equal to its plain version, the gradient
+    within its bound, on smooth, out-of-frame and block flows."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    for w in (1, 2, 3, 7, 13, 31, 33, 67, 131):
+        for kind in ("smooth", "out_of_frame", "blocks"):
+            n, c, h = 2, 5, 9
+            img = torch.from_numpy(rng.normal(0, 2, (n, c, h, w)).astype(np.float32))
+            g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32))
+            img, g = (t.cuda().to(dtype) for t in (img, g))
+            flow = torch.from_numpy(_flow(rng, n, h, w, kind).astype(np.float32))
+            flow = flow.cuda().to(flow_dtype)
+            want = tw.warp_planes_ref(img, flow)
+            for layout, ppts in tw_cuda.K1_PPTS.items():
+                for ppt in ppts:
+                    got = tw_cuda.launch(img, flow, ppt=ppt, layout=layout)
+                    assert torch.equal(got, want), (w, kind, layout, ppt)
+            for need_img in (True, False):
+                got = tw_cuda.launch_bwd(img, flow, g, need_img, True)
+                _assert_bwd_within_bound(img, flow, g, got, need_img)
+
+
+@pytest.mark.gpu
+def test_k1_bf16_past_2_31_output_elements():
+    """760 bf16 frames of 3x736x1280 (2.15e9 elements, over 2^31): the
+    planes' 64-bit bases, with 32-bit offsets within a plane.  The first and
+    last frames bit-equal to K1 and the plain version on those frames alone."""
+    _need_card()
+    n, c, h, w = 760, 3, 736, 1280
+    assert n * c * h * w > 2 ** 31
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    img = torch.rand(n, c, h, w, device="cuda", generator=gen, dtype=torch.bfloat16)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    phase = torch.arange(n, device="cuda", dtype=torch.float32).view(n, 1, 1)
+    flow = torch.stack([(9 * torch.sin(yy / 40 + phase)).expand(n, h, w),
+                        (7 * torch.cos(xx / 60 + phase)).expand(n, h, w)], 1).bfloat16()
+    out = tw.warp_planes(img, flow)
+    for i in (0, n - 1):
+        one = tw.warp_planes(img[i:i + 1].clone(), flow[i:i + 1].clone())
+        want = tw.warp_planes_ref(img[i:i + 1], flow[i:i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(out[i:i + 1], one) and torch.equal(one, want), i
+
+
+@pytest.mark.gpu
+def test_warp_kernel_and_gradient_are_one_cuda_launch_each():
+    """By the profiler's device events: K1 is one kernel a call (the feature
+    maps' layout, at 16 channels, and the frame pairs'), and the gradient
+    one kernel a call (besides the d_img scratch's memset and cast), where
+    it was two; the counters move by one."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(14)
+    img = torch.from_numpy(rng.normal(0, 2, (2, 16, 40, 72)).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(0, 1, (2, 16, 40, 72)).astype(np.float32)).cuda()
+    flow = torch.from_numpy(_flow(rng, 2, 40, 72, "smooth").astype(np.float32)).cuda()
+    pair = img[:, :3].contiguous()
+    calls = [("warp_planes_flat_kernel", tw.warp_planes, lambda: tw.warp_planes(img, flow)),
+             ("warp_planes_kernel", tw.warp_planes, lambda: tw.warp_planes(pair, flow))]
+    for need_img in (True, False):
+        calls.append(("warp_planes_bwd_kernel", tw.warp_planes_bwd,
+                      lambda ni=need_img: tw.warp_planes_bwd(img, flow, g, ni, True)))
+    for name, counter, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        before = counter.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "warp_planes" in e.name]
+        assert len(kernels) == 1 and name in kernels[0], kernels
 
 
 @pytest.mark.gpu
