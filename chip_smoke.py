@@ -554,9 +554,10 @@ def check_and_time_bwd_kernel(warp_mod, dev):
     image and flow dtypes the step passes; the backward also once in f32
     and with a +-200 px per-8x8-block flow in each dtype pairing; and the
     backward's time beside its bytes bound, the plain version's and
-    grid_sampler_2d_backward's, its launch plan, the share of its tiles
-    that summed d_img in shared memory and its call's memset / kernel /
-    cast split.  Returns the per-shape records, the backward's largest
+    grid_sampler_2d_backward's, its launch plan, the share of its pixels
+    that handed their right taps of d_img to their right neighbour and
+    its call's memset / kernel / cast split (each over copies larger than
+    L2).  Returns the per-shape records, the backward's largest
     error and the forward's."""
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
     from rife_tpu_torch.tools.warp_planes import bwd_split_ms, merge_share

@@ -46,10 +46,13 @@
 
 namespace {
 
-// K consecutive values of T: a run of one plane's row.  load_run reads them
-// as floats and store_run writes them back, in loads and stores of up to
-// 16 bytes (the address a multiple of min(16, K x sizeof(T)) bytes; the
-// caller checks).  A bf16 value is rounded to nearest, as store_f does.
+constexpr int PPT = 2;  // pixels a thread of RUN and RUN_VEC; the wrapper's K1_PPT
+
+// PPT consecutive values of T, a thread's run of one plane's row, as one
+// access of PPT x sizeof(T) bytes (4 in bf16, 8 in f32; the address a
+// multiple of it, which the wrapper checks).  load_run reads them as
+// floats and store_run writes them back, a bf16 value rounded to nearest
+// as store_f does.
 template <int BYTES>
 struct Chunk;
 template <>
@@ -60,43 +63,29 @@ template <>
 struct Chunk<8> {
   using type = uint2;
 };
-template <>
-struct Chunk<16> {
-  using type = uint4;
-};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f(float& e, float v) { e = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16& e, float v) { e = __float2bfloat16(v); }
 
-template <typename T, int K>
+template <typename T>
 __device__ __forceinline__ void load_run(const T* p, float* v) {
-  constexpr int CB = K * sizeof(T) < 16 ? K * sizeof(T) : 16;
-  constexpr int PER = CB / sizeof(T);
-  using U = typename Chunk<CB>::type;
+  using U = typename Chunk<PPT * sizeof(T)>::type;
+  const U q = __ldg(reinterpret_cast<const U*>(p));
+  const T* e = reinterpret_cast<const T*>(&q);
 #pragma unroll
-  for (int i = 0; i < K / PER; ++i) {
-    const U q = __ldg(reinterpret_cast<const U*>(p) + i);
-    const T* e = reinterpret_cast<const T*>(&q);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) v[i * PER + j] = to_f(e[j]);
-  }
+  for (int j = 0; j < PPT; ++j) v[j] = to_f(e[j]);
 }
 
-template <typename T, int K>
+template <typename T>
 __device__ __forceinline__ void store_run(T* p, const float* v) {
-  constexpr int CB = K * sizeof(T) < 16 ? K * sizeof(T) : 16;
-  constexpr int PER = CB / sizeof(T);
-  using U = typename Chunk<CB>::type;
+  using U = typename Chunk<PPT * sizeof(T)>::type;
+  U q;
+  T* e = reinterpret_cast<T*>(&q);
 #pragma unroll
-  for (int i = 0; i < K / PER; ++i) {
-    U q;
-    T* e = reinterpret_cast<T*>(&q);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) from_f(e[j], v[i * PER + j]);
-    reinterpret_cast<U*>(p)[i] = q;
-  }
+  for (int j = 0; j < PPT; ++j) from_f(e[j], v[j]);
+  *reinterpret_cast<U*>(p) = q;
 }
 
 constexpr int MAX_THREADS = 256;
@@ -107,7 +96,7 @@ constexpr int RUN = 0, RUN_VEC = 1, FLAT = 2;
 
 // The frame pairs' layout: block (tile, row block, image) of (tx, ty)
 // threads; CT = C, or 0 to read C at run time.
-template <typename T, typename F, int PPT, int CT, int MODE>
+template <typename T, typename F, int CT, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS)
 warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
                    T* __restrict__ out, int C, int H, int W) {
@@ -121,8 +110,8 @@ warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
   const F* fl = flow + 2 * n * hw + row;
   float dx[PPT], dy[PPT];
   if (MODE == RUN_VEC) {
-    load_run<F, PPT>(fl + xb, dx);
-    load_run<F, PPT>(fl + hw + xb, dy);
+    load_run<F>(fl + xb, dx);
+    load_run<F>(fl + hw + xb, dy);
   } else {
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
@@ -158,7 +147,7 @@ warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
                     load_f(src + a11[j]), fx[j], fy[j], gx[j], gy[j]);
     }
     if (MODE == RUN_VEC) {
-      store_run<T, PPT>(dst, v);
+      store_run<T>(dst, v);
     } else {
 #pragma unroll
       for (int j = 0; j < PPT; ++j)
@@ -201,16 +190,16 @@ warp_planes_flat_kernel(const T* __restrict__ img, const F* __restrict__ flow,
   }
 }
 
-template <typename T, typename F, int PPT, int MODE>
+template <typename T, typename F, int MODE>
 void launch_run(const void* img, const void* flow, void* out, int C, int H, int W,
                 dim3 grid, dim3 block, cudaStream_t s) {
   const T* im = static_cast<const T*>(img);
   const F* fl = static_cast<const F*>(flow);
   T* o = static_cast<T*>(out);
   if (C == 3) {
-    warp_planes_kernel<T, F, PPT, 3, MODE><<<grid, block, 0, s>>>(im, fl, o, C, H, W);
+    warp_planes_kernel<T, F, 3, MODE><<<grid, block, 0, s>>>(im, fl, o, C, H, W);
   } else {
-    warp_planes_kernel<T, F, PPT, 0, MODE><<<grid, block, 0, s>>>(im, fl, o, C, H, W);
+    warp_planes_kernel<T, F, 0, MODE><<<grid, block, 0, s>>>(im, fl, o, C, H, W);
   }
 }
 
@@ -219,23 +208,18 @@ int launch_typed(const void* img, const void* flow, void* out, int N, int C, int
                  int W, int gx, int gy, int tx, int ty, int ppt, int cg, int mode,
                  cudaStream_t s) {
   if (tx < 1 || ty < 1 || tx * ty > MAX_THREADS || gy < 1 || gy > 65535 || N > 65535 ||
-      (mode == FLAT && (tx != MAX_THREADS || cg < 1)))
+      mode < RUN || mode > FLAT || ppt != (mode == FLAT ? 1 : PPT) ||
+      (mode == FLAT && (tx != MAX_THREADS || ty != 1 || cg < 1)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(gx, gy, N), block(tx, ty);
-  if (mode == FLAT && ppt == 1) {
+  if (mode == FLAT) {
     warp_planes_flat_kernel<T, F><<<grid, block, 0, s>>>(
         static_cast<const T*>(img), static_cast<const F*>(flow), static_cast<T*>(out), C,
         H, W, cg);
-  } else if (mode == RUN && ppt == 2) {
-    launch_run<T, F, 2, RUN>(img, flow, out, C, H, W, grid, block, s);
-  } else if (mode == RUN && ppt == 4) {
-    launch_run<T, F, 4, RUN>(img, flow, out, C, H, W, grid, block, s);
-  } else if (mode == RUN_VEC && ppt == 2) {
-    launch_run<T, F, 2, RUN_VEC>(img, flow, out, C, H, W, grid, block, s);
-  } else if (mode == RUN_VEC && ppt == 4) {
-    launch_run<T, F, 4, RUN_VEC>(img, flow, out, C, H, W, grid, block, s);
+  } else if (mode == RUN) {
+    launch_run<T, F, RUN>(img, flow, out, C, H, W, grid, block, s);
   } else {
-    return (int)cudaErrorInvalidValue;
+    launch_run<T, F, RUN_VEC>(img, flow, out, C, H, W, grid, block, s);
   }
   return (int)cudaGetLastError();
 }
@@ -257,11 +241,11 @@ int launch(const void* img, const void* flow, void* out, int N, int C, int H, in
 // img, out: (N, C, H, W) in the named type; flow: (N, 2, H, W) f32 or bf16
 // (flow_is_bf16).  The launch from the wrapper (ops/cuda/warp.py k1_plan):
 // a grid of (gx, gy, N) blocks of (tx, ty) threads, `ppt` pixels a thread;
-// `mode`: 0 (RUN), row tiles x row blocks, ppt 2 or 4 consecutive pixels a
+// `mode`: 0 (RUN), row tiles x row blocks, ppt = 2 consecutive pixels a
 // thread, every channel; 1 (RUN_VEC), the same with the dx/dy runs and
-// the output runs as vector accesses (W a multiple of ppt, the flow's and
-// the output's addresses multiples of the run's bytes); 2 (FLAT), blocks
-// of 256 pixels x channel groups of `cg`, a pixel a thread.  Returns the
+// the output runs as vector accesses (W even, the flow's and the output's
+// addresses multiples of the run's bytes); 2 (FLAT), blocks of 256 pixels
+// x channel groups of `cg`, a pixel a thread (ppt = 1).  Returns the
 // launch's cudaError_t (cudaErrorInvalidValue for a launch it does not
 // take).
 extern "C" int warp_planes_bf16(const void* img, const void* flow, void* out, int N,

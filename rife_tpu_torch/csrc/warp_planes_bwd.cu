@@ -192,7 +192,9 @@ template <typename T, typename F>
 int launch_typed(const void* img, const void* flow, const void* g, void* d_img,
                  void* d_flow, int N, int C, int H, int W, int tx_shift, int p_shift,
                  int* merges, cudaStream_t s) {
-  if (p_shift < 5 || p_shift > 8 || tx_shift < 0 || tx_shift > p_shift || N > 65535 ||
+  // tx_shift <= 5: a tile's row lies within one warp, lane 0 at its first
+  // column, which the shuffle merge of d_img's taps relies on.
+  if (p_shift < 5 || p_shift > 8 || tx_shift < 0 || tx_shift > 5 || N > 65535 ||
       (d_img == nullptr && d_flow == nullptr))
     return (int)cudaErrorInvalidValue;
   const int ty = 1 << (p_shift - tx_shift);
@@ -227,8 +229,8 @@ int launch(const void* img, const void* flow, const void* g, void* d_img, void* 
 // bf16 (flow_is_bf16); d_img: a zeroed f32 (N, C, H, W) scratch, or null
 // when d_img is not needed; d_flow null when it is not needed (not both).
 // The launch from the wrapper (ops/cuda/warp.py bwd_plan): 256 threads a
-// block, tiles of 2^tx_shift x 2^(p_shift - tx_shift) pixels (P =
-// 2^p_shift >= 32 pixels, 256 / P channel groups), a grid of (ceil(W /
+// block, tiles of 2^tx_shift x 2^(p_shift - tx_shift) pixels (TX = 2^tx_shift
+// <= 32, P = 2^p_shift >= 32 pixels, 256 / P channel groups), a grid of (ceil(W /
 // TX), ceil(H / TY), N); `merges`: null, or two int counters (pixels by
 // whether their right taps went to their neighbour).  Returns the launch's
 // cudaError_t (cudaErrorInvalidValue for a launch it does not take).

@@ -10,10 +10,11 @@ launch on PyTorch's current stream without synchronising, and raise if a
 launch was refused.
 
 Both kernels' launch geometry is computed here, not in the kernels, so
-the CPU tests hold the arithmetic the kernels are given:
+the CPU tests hold the arithmetic the kernels are given, and each is
+computed once per shape and alignment (memoised), so a call plans nothing:
 
-- `k1_plan`: for the frame pairs a grid of (row tile, row block, image)
-  blocks of (tx, ty) threads, `ppt` consecutive pixels a thread, and
+- `k1_plan`: for the C <= 4 frame pairs a grid of (row tile, row block,
+  image) blocks of (tx, ty) threads, 2 consecutive pixels a thread, and
   whether the flow and output runs are vector accesses; for feature maps
   a grid of (256-pixel block, channel group, image), a pixel a thread.
 - `bwd_plan`: 256 threads a block over a TX x TY tile of one image's
@@ -21,8 +22,10 @@ the CPU tests hold the arithmetic the kernels are given:
   host, which pixels of a launch hand their right taps to their right
   neighbour (one reduction for two taps of d_img).
 
-Both raise, with a message, on a shape their grid or their 32-bit
-in-plane offsets cannot hold.
+The layouts and their sizes are the fastest measured on an H100
+(`tools/warp_planes.py` and PERF.md); a sweep of other choices builds
+its own variant rather than ship them.  Both raise, with a message, on a
+shape their grid or their 32-bit in-plane offsets cannot hold.
 """
 from __future__ import annotations
 
@@ -40,9 +43,10 @@ I32 = 2 ** 31 - 1
 GRID_YZ = 65535  # the largest grid.y and grid.z
 NUM_SMS = 132  # H100 SXM
 
-# Pixels a thread the kernel is compiled for, by layout: consecutive pixels
-# of a row tile ("run"), or a pixel a thread of a flat pixel block ("flat").
-K1_PPTS = {"run": (2, 4), "flat": (1,)}
+# K1's layouts: consecutive pixels of a row tile ("run", the C <= 4 frame
+# pairs), or a pixel a thread of a flat pixel block ("flat", feature maps).
+K1_RUN_MAX_C = 4
+K1_PPT = 2  # pixels a thread of "run"; csrc/warp_planes.cu's PPT
 K1_THREADS = 256  # threads a block (at most, for "run")
 K1_TX_MAX = 256  # threads along a row at most
 K1_CG = 16  # channels a block of the flat layout
@@ -103,10 +107,6 @@ def _check_plane(shape) -> None:
                          f"exceeds 2^31 - 1 (shape {tuple(shape)})")
 
 
-def _run_bytes(ppt: int, elem: int) -> int:
-    return min(16, ppt * elem)
-
-
 def k1_row_tiles(units: int) -> tuple[int, int]:
     """(tiles, tx) for a row of `units` threads: tx at most K1_TX_MAX and a
     multiple of 32 where it exceeds 32; the fewest idle threads, then the
@@ -122,27 +122,33 @@ def k1_row_tiles(units: int) -> tuple[int, int]:
             return best[1]
 
 
-def k1_plan(img: torch.Tensor, flow: torch.Tensor, out_ptr: int,
-            ppt: int | None = None, layout: str | None = None) -> dict:
+def k1_plan(img: torch.Tensor, flow: torch.Tensor, out_ptr: int) -> dict:
     """K1's launch for `img` (N, C, H, W) and `flow` into a contiguous output
     at `out_ptr`: a grid of (gx, gy, N) blocks of (tx, ty) threads, `ppt`
-    pixels a thread, `cg` channels a block.  By default (the fastest
-    measured on an H100, `tools/warp_planes.py`) the C <= 4 frame pairs
-    take `layout` "run": `tiles` = gx row tiles of `tx` threads (a multiple
-    of 32 where a row needs more), `ty` rows a block, gy = `rows` row
-    blocks, 2 consecutive pixels a thread, all channels; `vec`: a run's
-    dx/dy and outputs as vector accesses (W a multiple of ppt, both
-    addresses on the run's bytes).  Feature maps take "flat": gx blocks of
-    the plane's next 256 pixels, gy channel groups of K1_CG, a pixel a
-    thread.  Raises on what the grid or the 32-bit in-plane offsets cannot
-    hold."""
-    n, c, h, w = img.shape
-    if layout is None:
-        layout, ppt = ("run", 2) if c <= 4 else ("flat", 1)
-    if layout not in K1_PPTS or ppt not in K1_PPTS[layout]:
-        raise ValueError(f"K1 is compiled for {K1_PPTS} pixels a thread, got {ppt} "
-                         f"({layout})")
-    _check_plane(img.shape)
+    pixels a thread, `cg` channels a block.  The C <= 4 frame pairs take
+    `layout` "run": `tiles` = gx row tiles of `tx` threads (a multiple of
+    32 where a row needs more), `ty` rows a block, gy = `rows` row blocks,
+    2 consecutive pixels a thread, all channels; `vec`: a run's dx/dy and
+    outputs as vector accesses (W even, both addresses on the run's
+    bytes).  Feature maps take "flat": gx blocks of the plane's next 256
+    pixels, gy channel groups of K1_CG, a pixel a thread.  Raises on what
+    the grid or the 32-bit in-plane offsets cannot hold.  A new dict each
+    call; `launch` reads the memoised one."""
+    return dict(_k1_plan(img, flow, out_ptr))
+
+
+def _k1_plan(img: torch.Tensor, flow: torch.Tensor, out_ptr: int) -> dict:
+    return _k1_plan_of(tuple(img.shape), flow.data_ptr() % (K1_PPT * flow.element_size()) == 0,
+                       out_ptr % (K1_PPT * img.element_size()) == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_plan_of(shape: tuple, flow_on_run: bool, out_on_run: bool) -> dict:
+    """`k1_plan` by shape and by whether the flow's and the
+    output's addresses are multiples of a run's bytes."""
+    n, c, h, w = shape
+    layout, ppt = ("run", K1_PPT) if c <= K1_RUN_MAX_C else ("flat", 1)
+    _check_plane(shape)
     if layout == "run":
         tiles, tx = k1_row_tiles(-(-w // ppt))
         ty = max(1, min(K1_THREADS // tx, h))
@@ -152,23 +158,20 @@ def k1_plan(img: torch.Tensor, flow: torch.Tensor, out_ptr: int,
         gx, gy, cg = -(-(h * w) // K1_THREADS), -(-c // K1_CG), min(c, K1_CG)
     if n > GRID_YZ or gy > GRID_YZ:
         raise ValueError(f"K1's grid holds N and {'rows' if layout == 'run' else 'groups'} "
-                         f"up to {GRID_YZ}, got shape {tuple(img.shape)}")
-    vec = (layout == "run" and w % ppt == 0
-           and flow.data_ptr() % _run_bytes(ppt, flow.element_size()) == 0
-           and out_ptr % _run_bytes(ppt, img.element_size()) == 0)
+                         f"up to {GRID_YZ}, got shape {shape}")
+    vec = layout == "run" and w % ppt == 0 and flow_on_run and out_on_run
     return {"layout": layout, "ppt": ppt, "gx": gx, "gy": gy, "tx": tx, "ty": ty,
             "tiles": tiles, "cg": cg, "threads": tx * ty, "blocks": gx * gy * n, "vec": vec,
             "mode": _K1_MODES["run_vec" if vec else layout]}
 
 
-def launch(img: torch.Tensor, flow: torch.Tensor, **plan) -> torch.Tensor:
+def launch(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) bf16/f32 image x (N, 2, H, W) bf16/f32 flow on one
-    CUDA device -> (N, C, H, W) warped image in the image's dtype.
-    `plan`: `k1_plan`'s choices (ppt, layout)."""
+    CUDA device -> (N, C, H, W) warped image in the image's dtype."""
     _check(img, flow)
     n, c, h, w = img.shape
     out = torch.empty_like(img)
-    p = k1_plan(img, flow, out.data_ptr(), **plan)
+    p = _k1_plan(img, flow, out.data_ptr())
     fn = getattr(library(), f"warp_planes_{_IMG_TYPES[img.dtype]}")
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -184,30 +187,35 @@ def pow2_ceil(v: int) -> int:
     return 1 << max(0, v - 1).bit_length()
 
 
-def bwd_plan(shape, min_blocks: int = BWD_MIN_BLOCKS,
-             max_groups: int = BWD_MAX_GROUPS) -> dict:
+def bwd_plan(shape) -> dict:
     """The gradient kernel's launch for an (N, C, H, W) image: tiles of
     `tx` x `ty` pixels (`tx` = the row's next power of two, at most 32;
     `p` = tx x ty >= 32 pixels, so a warp holds one channel group), 256 / p
-    channel groups (a power of two, at most C and `max_groups`), the
-    fewest that give `min_blocks` blocks.  Raises on what the grid or the
-    32-bit in-plane offsets cannot hold."""
+    channel groups (a power of two, at most C and BWD_MAX_GROUPS), the
+    fewest that give BWD_MIN_BLOCKS blocks.  Raises on what the grid or
+    the 32-bit in-plane offsets cannot hold.  A new dict each call;
+    `run_bwd` reads the memoised one."""
+    return dict(_bwd_plan_of(tuple(shape)))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_of(shape: tuple) -> dict:
     n, c, h, w = shape
     _check_plane(shape)
     if n > GRID_YZ:
         raise ValueError(f"the gradient kernel's grid holds N up to {GRID_YZ}, "
-                         f"got shape {tuple(shape)}")
+                         f"got shape {shape}")
     tx = min(BWD_TX_MAX, pow2_ceil(w))
     groups = 1
-    while (groups * 2 <= min(c, max_groups, BWD_MAX_GROUPS)
-           and n * -(-w // tx) * -(-h // (BWD_THREADS // groups // tx)) < min_blocks):
+    while (groups * 2 <= min(c, BWD_MAX_GROUPS)
+           and n * -(-w // tx) * -(-h // (BWD_THREADS // groups // tx)) < BWD_MIN_BLOCKS):
         groups *= 2
     p = BWD_THREADS // groups
     ty = p // tx
     tiles_y = -(-h // ty)
     if tiles_y > GRID_YZ:
         raise ValueError(f"the gradient kernel's grid holds ceil(H / {ty}) rows up to "
-                         f"{GRID_YZ}, got shape {tuple(shape)}")
+                         f"{GRID_YZ}, got shape {shape}")
     return {"tx": tx, "ty": ty, "p": p, "groups": groups,
             "tx_shift": tx.bit_length() - 1, "p_shift": p.bit_length() - 1,
             "per_thread": -(-c // groups), "tiles_x": -(-w // tx), "tiles_y": tiles_y,
@@ -237,13 +245,12 @@ def tap_merges(flow: torch.Tensor, plan: dict) -> tuple[int, int]:
 
 def run_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
             d_img: torch.Tensor | None, d_flow: torch.Tensor | None,
-            merges: torch.Tensor | None = None, **plan) -> dict:
+            merges: torch.Tensor | None = None) -> None:
     """The gradient kernel alone: adds d_img into `d_img` (a zeroed f32
     (N, C, H, W) scratch, or None) and writes `d_flow` (the flow's shape
     and dtype, or None); `merges`: None, or a 2-element int32 CUDA tensor
     that the kernel adds its `tap_merges` counts into (where d_img is
-    computed); `plan`: `bwd_plan`'s choices (min_blocks, max_groups).
-    Returns the plan."""
+    computed)."""
     n, c, h, w = img.shape
     for name, t, dtype in (("d_img", d_img, torch.float32), ("d_flow", d_flow, flow.dtype)):
         want = img.shape if name == "d_img" else flow.shape
@@ -255,7 +262,7 @@ def run_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
     if merges is not None and (merges.dtype != torch.int32 or merges.numel() != 2
                                or merges.device != img.device):
         raise ValueError("merges takes a 2-element int32 tensor on the image's device")
-    p = bwd_plan(img.shape, **plan)
+    p = _bwd_plan_of(tuple(img.shape))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = getattr(library_bwd(), f"warp_planes_bwd_{_IMG_TYPES[img.dtype]}")
     with torch.cuda.device(img.device):
@@ -265,7 +272,6 @@ def run_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
                  p["p_shift"], ptr(merges), stream)
     if err != 0:
         raise RuntimeError(f"warp_planes_bwd kernel launch failed: CUDA error {err}")
-    return p
 
 
 def launch_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,

@@ -1,24 +1,26 @@
 """K1, the plane warp, and its gradient on the card: each held against
 its plain version, then timed at the served and training launch shapes
-for each choice their launch plans leave open.
+with the launch plans the wrappers choose.
 
     python -m rife_tpu_torch.tools.warp_planes [--out FILE.json]
 
 K1 (`ops/cuda/warp.py` `launch`) at the six launches of a rung-1 `rife`
 forward (batch 4, 736x1280, N = 8 pairs, bf16) and v4.25's four rung-1
-launches (768x1280, 7 channels): its default plan, then every layout and
-number of pixels a thread the kernel is compiled for (`K1_PPTS`), beside
-the bytes bound.  The gradient (`run_bwd`) at the 8
-launches of a bf16 training step (batch 16, 224x224 crops, N = 32, with
-the step's flow dtypes and d_img where the step needs it), for a few
-channel-group choices, each with its call split into the d_img scratch's
-memset, the kernel and the cast to bf16, the kernel's time for each output
-alone, d_img's on a noise-free flow too, and the share of pixels that
-handed their right taps to their neighbour.  Smooth flows of the served
-size (8 px at 1280 wide, plus 0.25 px of noise), seeded; times are device times by CUDA events around captured
-graphs over copies larger than L2 (`utils.profiling.graph_ms`).
-`chip_smoke.py` imports `bwd_split_ms` and `merge_share`.  Needs a card;
-exits non-zero without one.
+launches (768x1280, 7 channels), with its plan, beside the bytes bound.
+The gradient (`run_bwd`) at the 8 launches of a bf16 training step
+(batch 16, 224x224 crops, N = 32, with the step's flow dtypes and d_img
+where the step needs it), its call split into the d_img scratch's
+memset, the kernel and the cast to bf16, the kernel's time for each
+output alone, d_img's on a noise-free flow too, and the share of pixels
+that handed their right taps to their neighbour.  Smooth flows of the
+served size (8 px at 1280 wide, plus 0.25 px of noise), seeded; times
+are device times by CUDA events around captured graphs over copies
+larger than L2 (`utils.profiling.graph_ms`), the memset and the cast
+over scratch tensors larger than L2 too.  `chip_smoke.py` imports
+`bwd_split_ms` and `merge_share`.  Needs a card; exits non-zero without
+one.  The launch plans' other layouts, pixels a thread and channel
+groups were measured and dropped (PERF.md); to measure one again, build
+it as a variant (`_build.build(name, defines)`).
 """
 from __future__ import annotations
 
@@ -53,9 +55,6 @@ BWD_LAUNCHES = [
     ("context level 2", 32, 64, 28, 28, torch.bfloat16, True),
     ("context level 3", 32, 128, 14, 14, torch.bfloat16, True),
 ]
-# The gradient's plans tried: (min_blocks, max_groups).
-BWD_PLANS = [(cw.BWD_MIN_BLOCKS, cw.BWD_MAX_GROUPS), (cw.BWD_MIN_BLOCKS // 4, 8),
-             (cw.BWD_MIN_BLOCKS, 4)]
 
 
 def smooth_flow(n, h, w, gen, dtype, dev="cuda", noise=0.25):
@@ -74,7 +73,7 @@ def _copies(nbytes: int) -> int:
     return max(1, math.ceil(L2_BYTES / nbytes))
 
 
-def merge_share(img, flow, g, need_img: bool, **plan) -> float | None:
+def merge_share(img, flow, g, need_img: bool) -> float | None:
     """The share of a gradient launch's pixels that handed their right taps
     of d_img to their right neighbour (the kernel's own count); None where
     d_img is not asked for."""
@@ -82,29 +81,32 @@ def merge_share(img, flow, g, need_img: bool, **plan) -> float | None:
         return None
     merges = torch.zeros(2, dtype=torch.int32, device=img.device)
     scratch = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-    cw.run_bwd(img, flow, g, scratch, torch.empty_like(flow), merges, **plan)
+    cw.run_bwd(img, flow, g, scratch, torch.empty_like(flow), merges)
     gave, kept = (int(v) for v in merges.tolist())
     return gave / (gave + kept)
 
 
-def bwd_split_ms(img, flow, g, need_img: bool, need_flow: bool = True, **plan) -> dict:
+def bwd_split_ms(img, flow, g, need_img: bool, need_flow: bool = True) -> dict:
     """The gradient call's device time split: the f32 scratch's memset, the
     kernel alone (into a scratch) and the cast of the scratch to the
     image's type (both 0 where d_img is not asked for), and the whole
-    `launch_bwd` call."""
+    `launch_bwd` call.  The memset and the cast each cycle over scratch
+    tensors (and cast outputs) that together exceed L2, as the kernel's
+    and the call's inputs do."""
     nbytes = 3 * img.numel() * img.element_size()
     inputs = [(img.clone(), flow.clone(), g.clone()) for _ in range(_copies(nbytes))]
+    scratch = [torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+               for _ in range(_copies(img.numel() * 4) if need_img else 0)]
     out = {"memset_ms": 0.0, "cast_ms": 0.0}
     if need_img:
-        out["memset_ms"] = graph_ms(lambda: torch.zeros(img.shape, dtype=torch.float32,
-                                                        device=img.device), [()], CALLS)
-        scratch = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-        out["cast_ms"] = graph_ms(lambda s: s.to(img.dtype), [(scratch,)] * 2, CALLS)
-    bufs = [(a, f, b, torch.zeros(img.shape, dtype=torch.float32, device=img.device)
-             if need_img else None, torch.empty_like(flow) if need_flow else None)
-            for a, f, b in inputs]
-    out["kernel_ms"] = graph_ms(lambda a, f, b, d, e: cw.run_bwd(a, f, b, d, e, **plan),
-                                bufs, CALLS)
+        out["memset_ms"] = graph_ms(lambda s: s.zero_(), [(s,) for s in scratch], CALLS)
+        casts = [(s, torch.empty_like(img)) for s in scratch]
+        out["cast_ms"] = graph_ms(lambda s, o: o.copy_(s), casts, CALLS)
+        del casts
+    bufs = [(a, f, b, scratch[i % len(scratch)] if need_img else None,
+             torch.empty_like(flow) if need_flow else None)
+            for i, (a, f, b) in enumerate(inputs)]
+    out["kernel_ms"] = graph_ms(cw.run_bwd, bufs, CALLS)
     out["call_ms"] = graph_ms(lambda a, f, b: cw.launch_bwd(a, f, b, need_img, need_flow),
                               inputs, CALLS)
     return out
@@ -115,23 +117,14 @@ def fwd_records(gen) -> list:
     for name, n, c, h, w in FWD_LAUNCHES:
         img = torch.rand(n, c, h, w, device="cuda", generator=gen).to(torch.bfloat16)
         flow = smooth_flow(n, h, w, gen, torch.bfloat16)
-        want = tw.warp_planes_ref(img, flow)
+        if not torch.equal(cw.launch(img, flow), tw.warp_planes_ref(img, flow)):
+            raise AssertionError(f"K1 differs from its plain version: {name}")
         nbytes = 2 * img.numel() * 2 + flow.numel() * 2
         inputs = [(img.clone(), flow.clone()) for _ in range(_copies(nbytes))]
         rec = {"launch": name, "img": [n, c, h, w], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "default_plan": cw.k1_plan(img, flow, 0), "variants": []}
-        for layout, ppts in cw.K1_PPTS.items():
-            for ppt in ppts:
-                plan = {"ppt": ppt, "layout": layout}
-                if not torch.equal(cw.launch(img, flow, **plan), want):
-                    raise AssertionError(f"K1 {plan} differs from its plain version: {name}")
-                ms = graph_ms(lambda a, f: cw.launch(a, f, **plan), inputs, CALLS)
-                rec["variants"].append({**cw.k1_plan(img, flow, 0, **plan), "ms": ms})
-        rec["default_ms"] = graph_ms(cw.launch, inputs, CALLS)
-        print(f"  {name} {tuple(img.shape)}: bound {rec['bound_ms'] * 1e3:.1f} us; default "
-              f"{rec['default_ms'] * 1e3:.1f} us; " + ", ".join(
-                  f"{v['layout']} {v['ppt']} {v['ms'] * 1e3:.1f}"
-                  for v in sorted(rec["variants"], key=lambda v: v["ms"])[:4]), flush=True)
+               "plan": cw.k1_plan(img, flow, 0), "ms": graph_ms(cw.launch, inputs, CALLS)}
+        print(f"  {name} {tuple(img.shape)}: {rec['ms'] * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.1f} us ({rec['plan']['layout']})", flush=True)
         recs.append(rec)
     return recs
 
@@ -143,36 +136,25 @@ def bwd_records(gen) -> list:
         flow = smooth_flow(n, h, w, gen, flow_dtype)
         smooth = smooth_flow(n, h, w, gen, flow_dtype, noise=0.0)
         g = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 1e-3).to(torch.bfloat16)
-        d_img0, d_flow0 = cw.launch_bwd(img, flow, g, need_img, True)
+        split = bwd_split_ms(img, flow, g, need_img)
         rec = {"launch": name, "img": [n, c, h, w], "need_img": need_img,
-               "flow_dtype": str(flow_dtype).replace("torch.", ""), "variants": []}
-        for min_blocks, max_groups in BWD_PLANS:
-            plan = {"min_blocks": min_blocks, "max_groups": max_groups}
-            scratch = torch.zeros(img.shape, dtype=torch.float32, device="cuda") \
-                if need_img else None
-            p = cw.run_bwd(img, flow, g, scratch, torch.empty_like(flow), **plan)
-            if need_img and not torch.allclose(scratch.to(img.dtype).float(),
-                                               d_img0.float(), rtol=1e-2, atol=1e-6):
-                raise AssertionError(f"d_img differs with {plan}: {name}")
-            split = bwd_split_ms(img, flow, g, need_img, **plan)
-            v = {**plan, **split, "plan": p,
-                 "merge_share": merge_share(img, flow, g, need_img, **plan)}
-            if need_img:  # each output alone; d_img also on a noise-free flow
-                v["d_flow_only_ms"] = bwd_split_ms(img, flow, g, False, **plan)["kernel_ms"]
-                v["d_img_only_ms"] = bwd_split_ms(img, flow, g, True, False,
-                                                  **plan)["kernel_ms"]
-                v["d_img_only_noise_free_ms"] = bwd_split_ms(img, smooth, g, True, False,
-                                                             **plan)["kernel_ms"]
-                v["merge_share_noise_free"] = merge_share(img, smooth, g, True, **plan)
-            rec["variants"].append(v)
-            print(f"  {name} {tuple(img.shape)} groups {p['groups']}: kernel "
-                  f"{split['kernel_ms'] * 1e3:.1f} us, memset {split['memset_ms'] * 1e3:.1f}, "
-                  f"cast {split['cast_ms'] * 1e3:.1f}, call {split['call_ms'] * 1e3:.1f}; "
-                  f"d_flow only {v.get('d_flow_only_ms', 0) * 1e3:.1f}, d_img only "
-                  f"{v.get('d_img_only_ms', 0) * 1e3:.1f} (noise-free flow "
-                  f"{v.get('d_img_only_noise_free_ms', 0) * 1e3:.1f}); merged "
-                  f"{v['merge_share']} (noise-free {v.get('merge_share_noise_free')})",
-                  flush=True)
+               "flow_dtype": str(flow_dtype).replace("torch.", ""),
+               "plan": cw.bwd_plan(img.shape), **split,
+               "merge_share": merge_share(img, flow, g, need_img)}
+        if need_img:  # each output alone; d_img also on a noise-free flow
+            rec["d_flow_only_ms"] = bwd_split_ms(img, flow, g, False)["kernel_ms"]
+            rec["d_img_only_ms"] = bwd_split_ms(img, flow, g, True, False)["kernel_ms"]
+            rec["d_img_only_noise_free_ms"] = bwd_split_ms(img, smooth, g, True,
+                                                           False)["kernel_ms"]
+            rec["merge_share_noise_free"] = merge_share(img, smooth, g, True)
+        print(f"  {name} {tuple(img.shape)} groups {rec['plan']['groups']}: kernel "
+              f"{split['kernel_ms'] * 1e3:.1f} us, memset {split['memset_ms'] * 1e3:.1f}, "
+              f"cast {split['cast_ms'] * 1e3:.1f}, call {split['call_ms'] * 1e3:.1f}; "
+              f"d_flow only {rec.get('d_flow_only_ms', 0) * 1e3:.1f}, d_img only "
+              f"{rec.get('d_img_only_ms', 0) * 1e3:.1f} (noise-free flow "
+              f"{rec.get('d_img_only_noise_free_ms', 0) * 1e3:.1f}); merged "
+              f"{rec['merge_share']} (noise-free {rec.get('merge_share_noise_free')})",
+              flush=True)
         recs.append(rec)
     return recs
 
@@ -186,9 +168,9 @@ def main(argv=None) -> int:
         return 1
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print(f"== K1 by plan ({torch.cuda.get_device_name(0)})", flush=True)
+    print(f"== K1 ({torch.cuda.get_device_name(0)})", flush=True)
     fwd = fwd_records(gen)
-    print("== the gradient by plan", flush=True)
+    print("== the gradient", flush=True)
     bwd = bwd_records(gen)
     out = {"device": torch.cuda.get_device_name(0), "fwd": fwd, "bwd": bwd}
     if args.out:

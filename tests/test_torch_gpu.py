@@ -11,6 +11,7 @@ JAX nor rife_tpu, so it also runs where only PyTorch is installed:
 
 (tests/conftest.py imports JAX; --noconftest skips it on such a machine.)
 """
+import itertools
 import os
 
 import numpy as np
@@ -234,27 +235,45 @@ def test_backward_d_flow_is_the_same_bit_for_bit_across_calls(dtype, flow_dtype)
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
 def test_k1_and_gradient_at_ragged_widths(dtype, flow_dtype):
-    """Widths that are no multiple of 8 and narrower than a tile: K1 at each
-    layout and number of pixels a thread bit-equal to its plain version, the gradient
-    within its bound, on smooth, out-of-frame and block flows."""
+    """Widths that are no multiple of 8 and narrower than a tile: K1 in both
+    layouts (3 channels: runs of 2 pixels; 5: a pixel a thread) bit-equal
+    to its plain version, the gradient within its bound, on smooth,
+    out-of-frame and block flows."""
     _need_card()
     rng = np.random.default_rng(13)
-    for w in (1, 2, 3, 7, 13, 31, 33, 67, 131):
+    for w, c in itertools.product((1, 2, 3, 7, 13, 31, 33, 67, 131), (3, 5)):
         for kind in ("smooth", "out_of_frame", "blocks"):
-            n, c, h = 2, 5, 9
+            n, h = 2, 9
             img = torch.from_numpy(rng.normal(0, 2, (n, c, h, w)).astype(np.float32))
             g = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32))
             img, g = (t.cuda().to(dtype) for t in (img, g))
             flow = torch.from_numpy(_flow(rng, n, h, w, kind).astype(np.float32))
             flow = flow.cuda().to(flow_dtype)
-            want = tw.warp_planes_ref(img, flow)
-            for layout, ppts in tw_cuda.K1_PPTS.items():
-                for ppt in ppts:
-                    got = tw_cuda.launch(img, flow, ppt=ppt, layout=layout)
-                    assert torch.equal(got, want), (w, kind, layout, ppt)
+            got = tw_cuda.launch(img, flow)
+            assert torch.equal(got, tw.warp_planes_ref(img, flow)), (w, c, kind)
             for need_img in (True, False):
                 got = tw_cuda.launch_bwd(img, flow, g, need_img, True)
                 _assert_bwd_within_bound(img, flow, g, got, need_img)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_refuses_tiles_wider_than_a_warp():
+    """The shuffle merge of d_img's taps needs a tile's row within one warp:
+    the C entry refuses tx_shift > 5 (a tile over 32 wide) with
+    cudaErrorInvalidValue (1), and takes the plan's own."""
+    _need_card()
+    n, c, h, w = 1, 3, 8, 64
+    img = torch.zeros(n, c, h, w, device="cuda")
+    flow = torch.zeros(n, 2, h, w, device="cuda")
+    d_img = torch.zeros_like(img)
+    fn = tw_cuda.library_bwd().warp_planes_bwd_f32
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [img.data_ptr(), flow.data_ptr(), img.data_ptr(), d_img.data_ptr(), None,
+            n, c, h, w, 0]
+    assert fn(*args, 6, 8, None, stream) == 1
+    p = tw_cuda.bwd_plan(img.shape)
+    assert fn(*args, p["tx_shift"], p["p_shift"], None, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -4,17 +4,20 @@ and of its gradient (`bwd_plan`, `tap_merges`), on the CPU.
 The wrappers compute each kernel's grid, block and tile in Python and
 pass them to the kernel, so these tests hold the arithmetic the kernels
 are given: replaying the kernels' index formulas over the planned grid
-reaches every output pixel and channel exactly once (K1: a thread's run
-of `ppt` pixels, its image and channel group from a shift and a mask of
-blockIdx.z; the gradient: a thread's pixel and channel group from masks
-and shifts of threadIdx.x, a warp one channel group's pixels); the
-vector-access decisions hold only where the addresses allow them; the
+reaches every output pixel and channel exactly once (K1, C <= 4: a
+thread's run of 2 pixels of a row tile, grid (row tile, row block,
+image), all channels a block; K1 on feature maps: a pixel a thread of a
+256-pixel block, grid (pixel block, channel group, image); the
+gradient: a thread's pixel and channel group from masks and shifts of
+threadIdx.x, a warp one channel group's pixels, grid (tile column, tile
+row, image)); the vector-access decisions hold only where the addresses
+allow them; the plans are memoised and each call gets its own copy; the
 host's replay of which pixels hand their right taps of d_img to their
 right neighbour follows the taps and the tiles and equals a plain loop;
-the shape limits raise.  Shapes come from meta
-tensors (sizes without storage), so the served 720p shapes cost nothing;
-the grid factorises into its x, y and (image, channel) axes, which are
-replayed one by one.  No JAX, no card.
+the shape limits raise.  Shapes come from meta tensors (sizes without
+storage), so the served 720p shapes cost nothing; the grid factorises
+into its x, y and z axes, which are replayed one by one.  No JAX, no
+card.
 """
 import numpy as np
 import pytest
@@ -49,34 +52,39 @@ _SHAPES = [(1, 3, 1, 1), (2, 3, 3, 2), (1, 3, 5, 7), (3, 5, 9, 13), (2, 19, 67, 
 _IDS = ["x".join(map(str, s)) for s in _SHAPES]
 
 
-_LAYOUTS = [(layout, ppt) for layout, ppts in cw.K1_PPTS.items() for ppt in ppts]
+# The dtype pairings (image, flow) the kernel is compiled for.
+_DTYPES = [(a, b) for a in (torch.bfloat16, torch.float32) for b in (torch.bfloat16, torch.float32)]
+_DTYPE_IDS = [f"{str(a)[6:]}-{str(b)[6:]}" for a, b in _DTYPES]
 
 
-@pytest.mark.parametrize("layout,ppt", _LAYOUTS, ids=[f"{a}{b}" for a, b in _LAYOUTS])
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("n,c,h,w", _SHAPES, ids=_IDS)
-def test_k1_plan_covers_every_output_element_once(n, c, h, w, layout, ppt):
-    p = cw.k1_plan(*_meta(n, c, h, w), 0, ppt, layout)
-    tx, ty, cg = p["tx"], p["ty"], p["cg"]
+def test_k1_plan_covers_every_output_element_once(n, c, h, w, dtype, flow_dtype):
+    img, flow = _meta(n, c, h, w, dtype, flow_dtype)
+    p = cw.k1_plan(img, flow, 0)
+    tx, ty, cg, ppt = p["tx"], p["ty"], p["cg"], p["ppt"]
     assert p["threads"] == tx * ty <= cw.K1_THREADS and p["blocks"] == p["gx"] * p["gy"] * n
-    if layout == "run":
-        # x0 = (blockIdx.x * tx + threadIdx.x) * ppt, pixels x0 .. x0 + ppt - 1;
+    if c <= cw.K1_RUN_MAX_C:
+        # x0 = (blockIdx.x * tx + threadIdx.x) * 2, pixels x0, x0 + 1;
         # y = blockIdx.y * ty + threadIdx.y; every channel.
+        assert p["layout"] == "run" and ppt == cw.K1_PPT == 2
         assert tx <= cw.K1_TX_MAX and (tx <= 32 or tx % 32 == 0) and p["gx"] == p["tiles"]
         first = ((np.arange(p["gx"])[:, None] * tx + np.arange(tx)[None]) * ppt).ravel()
         x = (first[:, None] + np.arange(ppt)[None]).ravel()
         assert _once(x[x < w], w)
         y = (np.arange(p["gy"])[:, None] * ty + np.arange(ty)[None]).ravel()
         assert _once(y[y < h], h) and cg == c
+        # Both addresses at 0: vector runs exactly where W is even.
+        assert p["vec"] == (w % 2 == 0) and p["mode"] == (1 if w % 2 == 0 else 0)
     else:
         # p = blockIdx.x * 256 + threadIdx.x; y = p / W, x = p - y * W;
         # channels blockIdx.y * cg .. + cg - 1.
+        assert (p["layout"], ppt, ty, p["vec"], p["mode"]) == ("flat", 1, 1, False, 2)
         pix = (np.arange(p["gx"])[:, None] * tx + np.arange(tx)[None]).ravel()
         pix = pix[pix // w < h]
         assert _once(pix // w * w + pix % w, h * w)
         planes = [gi * cg + k for gi in range(p["gy"]) for k in range(cg) if gi * cg + k < c]
         assert _once(planes, c) and cg == min(c, cw.K1_CG)
-    if c == 3:  # the served pairs: by default one block takes all 3 channels
-        assert cw.k1_plan(*_meta(n, c, h, w), 0)["cg"] == 3
 
 
 def test_k1_layouts_by_default():
@@ -93,24 +101,19 @@ def test_k1_layouts_by_default():
 
 def test_k1_vector_runs_follow_alignment():
     img, flow = _meta(8, 3, 736, 1280)
-    for ppt, run in ((2, 4), (4, 8)):
-        assert cw.k1_plan(img, flow, 0, ppt, "run")["vec"]
-        assert cw.k1_plan(img, flow, run, ppt, "run")["mode"] == 1  # RUN_VEC
-        assert not cw.k1_plan(img, flow, run // 2, ppt, "run")["vec"]  # output off its run
-        assert cw.k1_plan(img, flow, run // 2, ppt, "run")["mode"] == 0  # RUN
-    p = cw.k1_plan(img, flow, 0, 1, "flat")  # a pixel a thread: value by value
-    assert not p["vec"] and p["mode"] == 2
+    assert cw.k1_plan(img, flow, 0)["vec"]
+    assert cw.k1_plan(img, flow, 4)["mode"] == 1  # RUN_VEC: 4-byte bf16 runs
+    assert not cw.k1_plan(img, flow, 2)["vec"]  # output off its run
+    assert cw.k1_plan(img, flow, 2)["mode"] == 0  # RUN
     f32, f32_flow = _meta(8, 3, 736, 1280, torch.float32)
-    assert cw.k1_plan(f32, f32_flow, 16, 4, "run")["vec"]  # 16-byte runs
-    assert not cw.k1_plan(f32, f32_flow, 8, 4, "run")["vec"]
-    for w in (131, 1279, 1283):  # W not a multiple of ppt: value by value
-        assert not cw.k1_plan(*_meta(2, 3, 5, w), 0, 2, "run")["vec"]
-    assert cw.k1_plan(*_meta(2, 3, 5, 1278), 0, 2, "run")["vec"]
-    assert not cw.k1_plan(*_meta(2, 3, 5, 1278), 0, 4, "run")["vec"]
-    assert cw._run_bytes(8, 4) == 16 and cw._run_bytes(2, 2) == 4
-    # By default the C = 3 pairs take 2-pixel runs, the feature maps spread.
-    assert cw.k1_plan(img, flow, 0)["layout"] == "run" and cw.k1_plan(img, flow, 0)["vec"]
-    assert cw.k1_plan(*_meta(8, 16, 368, 640), 0)["layout"] == "flat"
+    assert cw.k1_plan(f32, f32_flow, 8)["vec"]  # 8-byte f32 runs
+    assert not cw.k1_plan(f32, f32_flow, 4)["vec"]
+    mixed = _meta(8, 3, 736, 1280, torch.bfloat16, torch.float32)
+    assert cw.k1_plan(*mixed, 4)["vec"] and not cw.k1_plan(*mixed, 2)["vec"]
+    for w in (131, 1279, 1283):  # W odd: value by value
+        assert not cw.k1_plan(*_meta(2, 3, 5, w), 0)["vec"]
+    assert cw.k1_plan(*_meta(2, 3, 5, 1278), 0)["vec"]
+    assert not cw.k1_plan(*_meta(8, 16, 368, 640), 0)["vec"]  # flat: value by value
 
 
 def test_k1_flow_runs_follow_the_flow_address():
@@ -120,8 +123,25 @@ def test_k1_flow_runs_follow_the_flow_address():
     buf = torch.zeros(2 * 4 * 8 + 1, dtype=torch.bfloat16)
     off = buf[1:].view(1, 2, 4, 8)
     assert off.is_contiguous()
-    assert not cw.k1_plan(img, off, 0, 2, "run")["vec"]
-    assert cw.k1_plan(img, buf[:-1].view(1, 2, 4, 8), 0, 2, "run")["vec"]
+    assert not cw.k1_plan(img, off, 0)["vec"]
+    assert cw.k1_plan(img, buf[:-1].view(1, 2, 4, 8), 0)["vec"]
+
+
+def test_plans_are_memoised_and_copied():
+    """A call plans a shape once: the wrappers read the memoised plan, and
+    each public call returns its own copy, so a caller's edit reaches no
+    later launch."""
+    img, flow = _meta(8, 3, 736, 1280)
+    first = cw.k1_plan(img, flow, 0)
+    first["gx"] = -1
+    again = cw.k1_plan(img, flow, 0)
+    assert again["gx"] == 4 and again is not first
+    assert cw._k1_plan(img, flow, 0) is cw._k1_plan(img, flow, 64)
+    assert cw._k1_plan(img, flow, 0) is not cw._k1_plan(img, flow, 2)
+    b = cw.bwd_plan((32, 16, 112, 112))
+    b["groups"] = 0
+    assert cw.bwd_plan((32, 16, 112, 112))["groups"] > 0
+    assert cw._bwd_plan_of((32, 16, 112, 112)) is cw._bwd_plan_of((32, 16, 112, 112))
 
 
 @pytest.mark.parametrize("n,c,h,w", _SHAPES, ids=_IDS)
@@ -227,10 +247,6 @@ def test_shape_limits_raise_with_a_message():
         cw.bwd_plan((65536, 3, 2, 8))
     with pytest.raises(ValueError, match="grid holds ceil"):
         cw.bwd_plan((1, 3, 1 << 22, 256))  # 2^19 row tiles of 8
-    with pytest.raises(ValueError, match="compiled for"):
-        cw.k1_plan(*_meta(1, 3, 4, 8), 0, 3, "run")
-    with pytest.raises(ValueError, match="compiled for"):
-        cw.k1_plan(*_meta(1, 3, 4, 8), 0, 2, "flat")
     # Past 2^31 elements in all is fine: the planes' bases are 64-bit.
     assert cw.k1_plan(*_meta(760, 3, 736, 1280), 0)["blocks"] == 4 * 736 * 760
     assert 760 * 3 * 736 * 1280 > 2 ** 31
