@@ -19,7 +19,8 @@ Phases, each timed against its own budget:
    (v4.25's blend-only, the paper model's with the pair; bf16), in f32
    and with the block flow; kernel, plain-version and library times
    beside the memory bound, and K1's launch plan at each shape (tiles,
-   threads, pixels a thread, channel groups, vector runs);
+   threads, pixels a thread, channel groups, vector runs) and K2's at its
+   two launches (tiles, threads, pixels a thread, vector runs);
 4. main path: InferenceEngine("rife", fast=1, bf16) with the r5 weights
    serves 3 requests of 4 pairs of 720p content (padded to 736x1280);
    each forward must launch the warp kernel 6 times and the fused kernel
@@ -93,9 +94,10 @@ Phases, each timed against its own budget:
 10. probes: the round-3 gather probes K6-K8 (rife_tpu_torch.tools.
    gather_probe, the counterparts of tools/r3_exp1.py, r3_exp2.py and
    r3_exp21.py) driven once at the scripts' sizes: the recurrence for
-   r3_exp1.py's 8 bodies at R = 4000 in both forms (the tile in shared
-   memory across 1024 threads, and in one warp's registers) and for
-   r3_exp2.py's 7 at 40000 x 32 in the shared-memory form, the block copy
+   r3_exp1.py's 8 bodies at R = 4000 in both forms (the tile split into
+   the rows, columns or elements a step's gathers close over, a block
+   each, and the whole tile in one warp's registers) and for r3_exp2.py's
+   7 at 40000 x 32 in the first (block) form, the block copy
    with a per-block source index at 64x256 and on a 181 MB stack, the
    tile gathers (lane, sublane, 8-row broadcast) at 512 and 32768 tiles,
    10 chained cb = 1 warps and 10 chained K3 warps of a 4x736x1280x3 bf16
@@ -109,7 +111,9 @@ Phases, each timed against its own budget:
    calls, the warps bit-equal to K3, to each other and to the plain
    version (also on a +-200 px block flow); then their times beside their
    bounds, plain versions and library calls (the cb = 1 warp's row also
-   K3's time, its design and its launch plan).  No launch of these
+   K3's time, its design and its launch plan; the recurrence's records
+   its dependent-chain floor at the SM clock, bound by latency, beside
+   the card-wide operations).  No launch of these
    kernels in phases 4-9.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
@@ -241,6 +245,16 @@ BWD_DESIGN = ("a block of 256 threads per 2-D tile of one image's pixels and all
               "by global reductions into an f32 scratch (zeroed before, cast after), tap "
               "by tap, a lane's right taps handed to its right neighbour by a shuffle "
               "where they are that neighbour's left taps")
+K2_DESIGN = ("K1's run layout in blocks of 64 threads: a grid of (row tile of <= 32 "
+             "threads, row block, image), no division, a thread's run of 2 consecutive "
+             "pixels, both images' coordinates, 32-bit tap offsets, weights and the "
+             "sigmoid once a pixel, taps from device memory, the four flow runs, the mask "
+             "run and each channel's output runs as 4-byte (bf16) or 8-byte (f32) "
+             "accesses where aligned, channels unrolled for C = 3")
+MICRO_DESIGN = ("the tile split into the groups a step's gathers close over, each its "
+                "own block: a row (lane, lane2, v4row, v5row; 128 threads, shared memory "
+                "and the row's barrier), a warp of 4 columns (sublane; one shuffle), a "
+                "warp of 32 elements (base, mul, unpack); no tile-wide barrier")
 CB1_DESIGN = ("a block per power-of-two tile of one row (grid: tiles x rows x images), a "
               "thread per 16 bytes of consecutive (pixel, channel) items, each item's pixel "
               "by a 32-bit multiply-shift and its coordinate computed by itself, one 16-byte "
@@ -475,7 +489,9 @@ def check_and_time_blend(warp_mod, dev):
     the composed route's (a warp launch and torch's blend) and the library
     route's (F.grid_sample over the pair in f32, then torch.sigmoid and
     torch.lerp: three calls), and the other form's at the same shape.
-    Returns the records and the largest error."""
+    Returns the records (with K2's launch plan) and the largest error."""
+    from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     records, worst = [], 0.0
@@ -517,7 +533,9 @@ def check_and_time_blend(warp_mod, dev):
         records.append({
             "launch": name, "img": [n, c, h, w], "dtype": "bf16", "flow_dtype": "bf16",
             "mask_dtype": "bf16", "emit_pair": need_pair, "launches_per_forward": 1,
+            "plan": cuda_blend.k2_plan(a, flow, mask, (0,) * (3 if need_pair else 1)),
             "bytes": nbytes, "ms": ms, "other_form_ms": other_ms,
+            "share_of_bound": bound_s * 1e3 / ms,
             "plain_ms": plain_ms, "composed_ms": composed_ms,
             "library_ms": library_ms, "library": "F.grid_sample f32 + sigmoid + lerp",
             "bound_ms": bound_s * 1e3,
@@ -1430,16 +1448,27 @@ def probe_rows(probes: dict, smi: str) -> list:
     big_sel = e1["select_times"][-1]
     big_tiles = [r for r in e21["times"] if r["tiles"] == max(r["tiles"] for r in e21["times"])]
     budget = e1["budget_times"]
+    micro = e1["micro_times"]
+    card_wide = [max(r["operations_ms"], r["bytes_ms"]) for r in micro]
+    chain = sum(r["chain_floor_ms"] for r in micro)
     return [{
         "name": "micro", "wrapper": "rife_tpu_torch.ops.gather_probe.micro", "route": "cuda",
         "source": src, "replaces": "tools/r3_exp1.py:45",
         "replaces_also": "tools/r3_exp2.py:45 (micro)", "launches": launches["micro"],
-        "max_abs_err": micro_err, **sums(e1["micro_times"]), "bound_by": "operations",
-        "library_ms": None, "warp_form_ms": sum(r["warp_form_ms"] for r in e1["micro_times"]),
+        "max_abs_err": micro_err, "ms": sum(r["ms"] for r in micro),
+        "plain_ms": sum(r["plain_ms"] for r in micro), "bound_ms": sum(card_wide),
+        "bound_by": "operations" if all(r["operations_ms"] >= r["bytes_ms"] for r in micro)
+        else "bytes", "chain_floor_ms": chain, "chain_bound_by": "latency",
+        "share_of_chain_floor": chain / sum(r["ms"] for r in micro),
+        "assumed_cycles": {"alu": micro[0]["alu_cycles"],
+                           "smem_load_or_shuffle": micro[0]["smem_load_cycles"]},
+        "library_ms": None, "warp_form_ms": sum(r["warp_form_ms"] for r in micro),
+        "design": MICRO_DESIGN,
         "times_are": "r3_exp1.py's 8 bodies at R = 4000, one launch each, summed, the block "
                      "form (warp_form_ms: the tile in one warp's registers); bound: the "
-                     "operations over 67 TF/s (per_body: the dependent-chain and one-SM "
-                     "floors beside it); plain: the plain version on the host, one thread",
+                     "card-wide operations over 67 TF/s; chain_floor: the dependent chain "
+                     "of each step at the SM clock (per_body: each body's); plain: the "
+                     "plain version on the host, one thread",
         "per_body": e1["micro_times"] + e2["micro_times"], "checks": e1["micro"] + e2["micro"],
         "card": smi}, {
         "name": "select_rows", "wrapper": "rife_tpu_torch.ops.gather_probe.select_rows",
@@ -1608,7 +1637,9 @@ def main() -> int:
         "ms": v425_blend["ms"], "plain_ms": v425_blend["plain_ms"],
         "bound_ms": v425_blend["bound_ms"], "bound_by": v425_blend["bound_by"],
         "library_ms": v425_blend["library_ms"],
+        "share_of_bound": v425_blend["share_of_bound"],
         "times_are": "per v4.25 forward (one blend-only launch)",
+        "design": K2_DESIGN, "plan": {r["launch"]: r["plan"] for r in blend_records},
         "per_launch": blend_records, "ab": ab, "card": smi},
         nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232", design=K3_DESIGN),
         nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy), {

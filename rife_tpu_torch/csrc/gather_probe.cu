@@ -21,21 +21,35 @@
 // micro.  acc <- fma(acc, DECAY, body(fma(acc, MIX, x))) on one (8, 128)
 // f32 tile, from acc = 0, steps x UNROLL times.  Bound: latency, by
 // design: every step depends on the last, so the operations (a few per
-// element and step, under 1% of the f32 rate) never fill the SM; the floor
-// is the dependent chain of each step (two FMAs, the body's operations
-// and, for a gathering body, a shared-memory round trip and a barrier).
-// Design: one block of 1024 threads, one thread per element, acc in a
-// register.  A body that reads only its own element (base, mul, unpack)
-// never leaves registers; a gathering body writes s to shared memory,
-// waits at one barrier and reads its taps by index.  The tile is
-// double-buffered, so one barrier a step suffices: a thread writes buffer
-// k & 1 only after every thread has passed the barrier of step k - 1,
-// after its reads of step k - 2.  Roundings are the reference's (its
-// XLA fuses both a * b + c updates and v4/v5 rows' first product into
-// FMAs): __fmaf_rn there, __fmul_rn/__fadd_rn elsewhere, so no contraction
-// changes them.  The TPU probe's (8,128) vreg layout, lane and sublane
-// axes, become the tile's columns and rows.
-//
+// element and step, under 1% of the f32 rate) never fill the card; the
+// floor is the dependent chain of one step (two FMAs, the body's
+// operations and, for a gathering body, one shared-memory or shuffle
+// round trip), on any number of SMs.  Block form: the tile split into the
+// groups that a step's dependencies close over, each group a block of its
+// own (so groups run on different SMs), each step synchronising only its
+// group and never the tile:
+// - a row (lane, lane2, v4row, v5row: the TPU probe's lane gathers,
+//   take_along_axis on axis 1, stay within a row): 8 blocks of 128
+//   threads, a thread one element; a step writes s to the row's shared
+//   buffer, waits at the block's barrier and reads its taps by index.
+//   One warp holding the row, 4 values a lane, with __syncwarp was slower
+//   at every row body (4 random shared-memory gathers a lane a step), and
+//   slower still with shuffles in place of shared memory;
+// - a column (sublane: axis 0, within a column): 32 blocks of one warp, 4
+//   columns, lane 8c + r holding row r of column c; a step takes its tap
+//   from lane 8c + idx0 with one shuffle;
+// - an element (base, mul, unpack read only their own): 32 blocks of one
+//   warp, 32 elements, nothing shared.
+// A row's buffer is double-buffered, so one barrier a step suffices: a
+// thread writes buffer k & 1 only after every thread of the row has
+// passed the barrier of step k - 1, after its reads of step k - 2.
+// Roundings are the reference's (its XLA fuses both a * b + c updates
+// and v4/v5 rows' first product into FMAs): __fmaf_rn there,
+// __fmul_rn/__fadd_rn elsewhere, so no contraction changes them.  The TPU probe's (8,128)
+// vreg layout, lane and sublane axes, become the tile's columns and rows.
+// The warp form (micro_warp_kernel) keeps the whole tile in one warp's
+// registers: the probe's register form.
+
 // select_rows.  out block i = 2 * x block sel[i].  Bound: bytes (the
 // selected blocks read once, the output written once).  Design: one block
 // of threads per output block; it loads its own sel[i] (Hopper has no
@@ -87,78 +101,114 @@ __device__ __forceinline__ void unpack(float g, float& lo, float& hi) {
   hi = __uint_as_float(u & 0xFFFF0000u);
 }
 
-// One thread's element: its x, weights and tap positions in the tile.
-struct Elem {
-  float x, w, wc;
-  int lane1, lane2, sub;  // flat tap positions; -1 for an index out of range
-};
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int GROUP = 32;  // threads a column or element block: one warp
+constexpr int COLS_PER_WARP = GROUP / ROWS;  // whole columns in a warp
 
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
+
+// One step's body for an element of a row: `row` the row's s in shared
+// memory, t1, t2 its tap columns (clamped in range), ok whether its index
+// was in range (else NaN), w and wc = 1 - w its weights.
 template <int B>
-__device__ __forceinline__ float body(float s, const float* tile, const Elem& e,
-                                      float gain) {
-  const float nan = __int_as_float(0x7fffffff);
-  auto tap = [&](int j) { return j >= 0 ? tile[j] : nan; };
+__device__ __forceinline__ float row_body(const float* row, int t1, int t2, bool ok,
+                                          float w, float wc) {
+  const float a = ok ? row[t1] : nan_f();
   float lo, hi;
   switch (B) {
-    case BASE:
-      return s;
-    case MUL:
-      return __fmul_rn(s, gain);
     case LANE:
-      return tap(e.lane1);
+      return a;
     case LANE2:
-      return __fadd_rn(tap(e.lane1), tap(e.lane2));
-    case SUBLANE:
-      return tap(e.sub);
-    case UNPACK:
-      unpack(s, lo, hi);
-      return __fadd_rn(lo, hi);
+      return __fadd_rn(a, ok ? row[t2] : nan_f());
     case V4ROW:
-      return __fmaf_rn(tap(e.lane1), e.w, __fmul_rn(tap(e.lane2), e.wc));
+      return __fmaf_rn(a, w, __fmul_rn(ok ? row[t2] : nan_f(), wc));
     default:  // V5ROW
-      unpack(tap(e.lane1), lo, hi);
-      return __fmaf_rn(lo, e.w, __fmul_rn(hi, e.wc));
+      unpack(a, lo, hi);
+      return __fmaf_rn(lo, w, __fmul_rn(hi, wc));
   }
 }
 
+// The row bodies: block r holds row r, a thread one element; a step
+// writes s to the row's shared buffer, waits at the block's (the row's)
+// barrier and reads its taps by index.
 template <int B, int UNROLL>
-__global__ void __launch_bounds__(TILE)
-micro_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-             const int* __restrict__ idx0, const float* __restrict__ w,
-             float* __restrict__ out, int steps, float decay, float mix,
-             float gain) {
-  __shared__ float buf[2][TILE];
-  const int t = threadIdx.x;
-  const int r = t / COLS, l = t % COLS;
-  Elem e;
-  e.x = x[t];
-  e.w = w[t];
-  e.wc = __fsub_rn(1.0f, e.w);
-  const int i = idx[t], i0 = idx0[t];
-  const int i2 = min(max(i + 1, 0), COLS - 1);  // clip(i + 1, 0, 127)
-  e.lane1 = (unsigned)i < (unsigned)COLS ? r * COLS + i : -1;
-  e.lane2 = (unsigned)i < (unsigned)COLS ? r * COLS + i2 : -1;
-  e.sub = (unsigned)i0 < (unsigned)ROWS ? i0 * COLS + l : -1;
+__global__ void __launch_bounds__(COLS)
+micro_row_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                 const float* __restrict__ w, float* __restrict__ out, int steps,
+                 float decay, float mix) {
+  __shared__ float buf[2][COLS];
+  const int e = blockIdx.x * COLS + threadIdx.x;
+  const int i = idx[e];
+  const float xe = x[e], we = w[e], wce = __fsub_rn(1.0f, we);
+  const bool ok = (unsigned)i < (unsigned)COLS;
+  const int t1 = ok ? i : 0;
+  const int t2 = ok ? min(i + 1, COLS - 1) : 0;  // clip(i + 1, 0, 127)
   float acc = 0.0f;
   int p = 0;
   for (int k = 0; k < steps; ++k) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const float s = __fmaf_rn(acc, mix, e.x);
-      float b;
-      if constexpr (kGathers<B>) {
-        float* tile = buf[p];
-        p ^= 1;
-        tile[t] = s;
-        __syncthreads();
-        b = body<B>(s, tile, e, gain);
-      } else {
-        b = body<B>(s, nullptr, e, gain);
+      const float s = __fmaf_rn(acc, mix, xe);
+      float* row = buf[p];
+      p ^= 1;
+      row[threadIdx.x] = s;
+      __syncthreads();
+      acc = __fmaf_rn(acc, decay, row_body<B>(row, t1, t2, ok, we, wce));
+    }
+  }
+  out[e] = acc;
+}
+
+// The sublane body: block b holds columns 4b..4b+3, lane 8c + r the
+// element (r, 4b + c); its tap is lane 8c + idx0's s.
+template <int UNROLL>
+__global__ void __launch_bounds__(GROUP)
+micro_column_kernel(const float* __restrict__ x, const int* __restrict__ idx0,
+                    float* __restrict__ out, int steps, float decay, float mix) {
+  const int t = threadIdx.x;
+  const int e = (t % ROWS) * COLS + COLS_PER_WARP * blockIdx.x + t / ROWS;
+  const float xe = x[e];
+  const int i0 = idx0[e];
+  const bool ok = (unsigned)i0 < (unsigned)ROWS;
+  const int src = ok ? i0 : 0;  // within the lane's 8-lane column
+  float acc = 0.0f;
+  for (int k = 0; k < steps; ++k) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float s = __fmaf_rn(acc, mix, xe);
+      const float v = __shfl_sync(FULL, s, src, ROWS);
+      acc = __fmaf_rn(acc, decay, ok ? v : nan_f());
+    }
+  }
+  out[e] = acc;
+}
+
+// The bodies that read only their own element: block b holds elements
+// 32b..32b+31, a lane one.
+template <int B, int UNROLL>
+__global__ void __launch_bounds__(GROUP)
+micro_element_kernel(const float* __restrict__ x, float* __restrict__ out, int steps,
+                     float decay, float mix, float gain) {
+  const int e = blockIdx.x * GROUP + threadIdx.x;
+  const float xe = x[e];
+  float acc = 0.0f;
+  for (int k = 0; k < steps; ++k) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float s = __fmaf_rn(acc, mix, xe);
+      float b, lo, hi;
+      if (B == BASE) {
+        b = s;
+      } else if (B == MUL) {
+        b = __fmul_rn(s, gain);
+      } else {  // UNPACK
+        unpack(s, lo, hi);
+        b = __fadd_rn(lo, hi);
       }
       acc = __fmaf_rn(acc, decay, b);
     }
   }
-  out[t] = acc;
+  out[e] = acc;
 }
 
 // The warp form: the tile in one warp's registers, lane q holding columns
@@ -168,7 +218,6 @@ micro_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 // and there is no barrier.  The arithmetic is the block form's, element by
 // element, so both are the plain version bit for bit.  Built for unroll 1
 // only: at 32 the 32 elements' unrolled shuffles spill registers.
-constexpr unsigned FULL = 0xffffffffu;
 
 // Column m of a row held as 4 registers a lane (NaN for m < 0).
 __device__ __forceinline__ float lane_tap(const float (&row)[4], int m) {
@@ -260,16 +309,29 @@ micro_warp_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     for (int j = 0; j < 4; ++j) out[r * COLS + 4 * q + j] = acc[r][j];
 }
 
+template <int B, int UNROLL>
+void launch_block_form(const float* x, const int* idx, const int* idx0, const float* w,
+                       float* out, int steps, float decay, float mix, float gain,
+                       cudaStream_t s) {
+  if constexpr (B == SUBLANE) {
+    micro_column_kernel<UNROLL><<<COLS / COLS_PER_WARP, GROUP, 0, s>>>(x, idx0, out, steps,
+                                                                      decay, mix);
+  } else if constexpr (kGathers<B>) {
+    micro_row_kernel<B, UNROLL><<<ROWS, COLS, 0, s>>>(x, idx, w, out, steps, decay, mix);
+  } else {
+    micro_element_kernel<B, UNROLL><<<TILE / GROUP, GROUP, 0, s>>>(x, out, steps, decay,
+                                                                  mix, gain);
+  }
+}
+
 template <int B>
 int launch_micro_body(const float* x, const int* idx, const int* idx0,
                       const float* w, float* out, int steps, int unroll, int warp,
                       float decay, float mix, float gain, cudaStream_t s) {
   if (unroll == 1 && !warp) {
-    micro_kernel<B, 1><<<1, TILE, 0, s>>>(x, idx, idx0, w, out, steps, decay,
-                                          mix, gain);
+    launch_block_form<B, 1>(x, idx, idx0, w, out, steps, decay, mix, gain, s);
   } else if (unroll == 32 && !warp) {
-    micro_kernel<B, 32><<<1, TILE, 0, s>>>(x, idx, idx0, w, out, steps, decay,
-                                           mix, gain);
+    launch_block_form<B, 32>(x, idx, idx0, w, out, steps, decay, mix, gain, s);
   } else if (unroll == 1) {
     micro_warp_kernel<B, 1><<<1, 32, 0, s>>>(x, idx, idx0, w, out, steps, decay,
                                              mix, gain);
@@ -403,8 +465,9 @@ int launch_warp_cb1(const void* img, Strides is, const void* flow, Strides fs,
 
 // micro: x, w (8, 128) f32 and idx, idx0 (8, 128) int32, contiguous; out
 // (8, 128) f32.  body: 0-7 in the order base, mul, lane, lane2, sublane,
-// unpack, v4row, v5row; warp 0 for the block form (unroll 1 or 32), 1 for
-// the warp form (unroll 1); decay, mix, gain the f32 constants.  Returns
+// unpack, v4row, v5row; warp 0 for the block form (unroll 1 or 32: 8, 32
+// or 32 blocks of one warp by the body's groups), 1 for the warp form
+// (unroll 1); decay, mix, gain the f32 constants.  Returns
 // the launch's cudaError_t (cudaErrorInvalidValue for another body or
 // unroll).
 extern "C" int gather_probe_micro(const void* x, const void* idx,

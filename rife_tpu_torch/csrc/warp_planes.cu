@@ -48,46 +48,6 @@ namespace {
 
 constexpr int PPT = 2;  // pixels a thread of RUN and RUN_VEC; the wrapper's K1_PPT
 
-// PPT consecutive values of T, a thread's run of one plane's row, as one
-// access of PPT x sizeof(T) bytes (4 in bf16, 8 in f32; the address a
-// multiple of it, which the wrapper checks).  load_run reads them as
-// floats and store_run writes them back, a bf16 value rounded to nearest
-// as store_f does.
-template <int BYTES>
-struct Chunk;
-template <>
-struct Chunk<4> {
-  using type = unsigned int;
-};
-template <>
-struct Chunk<8> {
-  using type = uint2;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float& e, float v) { e = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16& e, float v) { e = __float2bfloat16(v); }
-
-template <typename T>
-__device__ __forceinline__ void load_run(const T* p, float* v) {
-  using U = typename Chunk<PPT * sizeof(T)>::type;
-  const U q = __ldg(reinterpret_cast<const U*>(p));
-  const T* e = reinterpret_cast<const T*>(&q);
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) v[j] = to_f(e[j]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_run(T* p, const float* v) {
-  using U = typename Chunk<PPT * sizeof(T)>::type;
-  U q;
-  T* e = reinterpret_cast<T*>(&q);
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) from_f(e[j], v[j]);
-  *reinterpret_cast<U*>(p) = q;
-}
-
 constexpr int MAX_THREADS = 256;
 // RUN: a thread's PPT consecutive pixels of a row tile, read and written
 // value by value; RUN_VEC: the same with the dx/dy runs and the outputs as
@@ -110,8 +70,8 @@ warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
   const F* fl = flow + 2 * n * hw + row;
   float dx[PPT], dy[PPT];
   if (MODE == RUN_VEC) {
-    load_run<F>(fl + xb, dx);
-    load_run<F>(fl + hw + xb, dy);
+    load_run<PPT>(fl + xb, dx);
+    load_run<PPT>(fl + hw + xb, dy);
   } else {
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
@@ -147,7 +107,7 @@ warp_planes_kernel(const T* __restrict__ img, const F* __restrict__ flow,
                     load_f(src + a11[j]), fx[j], fy[j], gx[j], gy[j]);
     }
     if (MODE == RUN_VEC) {
-      store_run<T>(dst, v);
+      store_run<PPT>(dst, v);
     } else {
 #pragma unroll
       for (int j = 0; j < PPT; ++j)

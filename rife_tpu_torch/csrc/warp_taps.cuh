@@ -4,7 +4,8 @@
 // Included by warp_planes.cu (K1's forward), warp_blend.cu (K2),
 // warp_nhwc.cu (K3, K4) and gather_probe.cu (K6c), so that K2's two warped
 // images and the NHWC warps are K1's outputs bit for bit, and by
-// warp_planes_bwd.cu for the loads and stores.  Semantics (rife_tpu's
+// warp_planes_bwd.cu for the loads and stores.  K1 and K2 share the run
+// accesses (load_run, store_run).  Semantics (rife_tpu's
 // warp_xla_planes): the pixel (x, y) samples at (clamp(x + dx, 0, W-1),
 // clamp(y + dy, 0, H-1)) with x1 = min(x0+1, W-1), y1 = min(y0+1, H-1);
 // coordinates are f32 even for a bf16 flow.
@@ -90,6 +91,50 @@ struct Vec<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = q;
   }
 };
+
+// N consecutive values of T, a thread's run of one plane's row, as one
+// access of N x sizeof(T) bytes (4, 8 or 16; the address a multiple of
+// it, which the wrappers check).  load_run reads them as floats and
+// store_run writes them back, a bf16 value rounded to nearest as store_f
+// does.
+template <int BYTES>
+struct Chunk;
+template <>
+struct Chunk<4> {
+  using type = unsigned int;
+};
+template <>
+struct Chunk<8> {
+  using type = uint2;
+};
+template <>
+struct Chunk<16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float& e, float v) { e = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16& e, float v) { e = __float2bfloat16(v); }
+
+template <int N, typename T>
+__device__ __forceinline__ void load_run(const T* p, float* v) {
+  using U = typename Chunk<N * sizeof(T)>::type;
+  const U q = __ldg(reinterpret_cast<const U*>(p));
+  const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = to_f(e[j]);
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_run(T* p, const float* v) {
+  using U = typename Chunk<N * sizeof(T)>::type;
+  U q;
+  T* e = reinterpret_cast<T*>(&q);
+#pragma unroll
+  for (int j = 0; j < N; ++j) from_f(e[j], v[j]);
+  *reinterpret_cast<U*>(p) = q;
+}
 
 // v rounded to T and back: what storing v as a T and reading it back gives.
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }

@@ -73,10 +73,11 @@ def _stream(t: torch.Tensor):
 
 def launch_micro(x, idx, idx0, w, body: int, steps: int, unroll: int, warp: bool,
                  decay: float, mix: float, gain: float) -> torch.Tensor:
-    """One block on the (8, 128) tile (shapes and dtypes checked by the
-    caller): 1024 threads holding it in shared memory, or with `warp` one
-    warp holding it in registers -> acc (8, 128) f32 after steps x unroll
-    iterations."""
+    """One launch on the (8, 128) tile (shapes and dtypes checked by the
+    caller): the block form, a block per group of the tile that the body's
+    gathers close over (a row of 128 threads, or a warp of 4 columns or of
+    32 elements), or with `warp` one warp holding the whole tile in
+    registers -> acc (8, 128) f32 after steps x unroll iterations."""
     _check_dense("micro", x, idx, idx0, w)
     if unroll not in (MICRO_WARP_UNROLLS if warp else MICRO_UNROLLS):
         raise ValueError(f"micro kernel's {'warp' if warp else 'block'} form is built for "

@@ -47,9 +47,10 @@ EXP2_BODIES = ("base", "mul", "lane", "sublane", "unpack", "v4row", "v5row")  # 
 # becomes any value (NaN included) a few steps later.
 CHAOTIC = ("unpack", "v5row")
 GATHER_KINDS = ("lane", "sublane", "bcast8")
-# The recurrence kernel's two forms: "block", 1024 threads with the tile in
-# shared memory; "warp", one warp with the tile in registers, gathering by
-# shuffles.
+# The recurrence kernel's two forms: "block", the tile split into the
+# groups a step's gathers close over (rows, columns or single elements),
+# one warp a group, each its own block; "warp", one warp with the whole
+# tile in registers, gathering by shuffles.
 FORMS = ("block", "warp")
 # The scripts' Python constants, as the f32 values a jnp f32 array times a
 # Python float uses.

@@ -10,8 +10,9 @@ sections named after them.  Inputs come from a seeded numpy generator
 (`jax.random`'s numbers cannot be had here), at the scripts' sizes:
 
 - exp1: the recurrence (`ops.gather_probe.micro`) for r3_exp1.py's 8
-  bodies at R = 4000, in ns per step, in both forms (the tile in shared
-  memory across 1024 threads, and in one warp's registers); `select_rows` at the script's size
+  bodies at R = 4000, in ns per step, in both forms (the tile split into
+  the groups a step's gathers close over, a block each, and the whole
+  tile in one warp's registers); `select_rows` at the script's size
   (64x256, sel = [3, 0, 5, 1]) and where the bytes count (a seeded
   permutation of the 8-row blocks of a 16x3x736x1280 f32 stack, 181 MB,
   over three times the 50 MB L2); the channel-block sweep: K3 (cb = C)
@@ -34,8 +35,14 @@ bits or NaN-ness differ are counted, not gated; the gathers and block
 copies exact, against the plain version and the library call; the warps
 bit-equal to each other and to `warp_ref`.  Times are device times by
 CUDA events around captured CUDA graphs (`utils.profiling.graph_ms`); the
-recurrence's plain version is timed on the host.  One JSON line a
-section.  `chip_smoke.py` imports these functions (its phase 10).
+recurrence's plain version is timed on the host.  The recurrence's bound
+is latency: its floor (`chain_floor_ms`) is the dependent chain of a
+step at the SM clock, with assumed latencies (ALU_CYCLES,
+SMEM_LOAD_CYCLES), the least time a serial recurrence can take on any
+number of SMs; the card-wide operations and bytes stand beside it.  A
+body measured under its floor shows the assumed latencies too long
+(`under_floor`).  One JSON line a section.  `chip_smoke.py` imports
+these functions (its phase 10).
 
 On the CPU the wrappers run their plain versions: the sections run at
 tiny sizes, as a rehearsal of the control flow, and time nothing.
@@ -63,10 +70,9 @@ from rife_tpu_torch.utils.profiling import graph_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
-SMS = 132
 # Assumed dependent latencies on Hopper, in SM cycles, for the recurrence's
-# floor: an f32 FMA/ALU op, and a shared-memory load (the barrier before it
-# not counted).
+# floor: an f32 FMA/ALU op, and a shared-memory load or a shuffle (the
+# warp's synchronisation before it not counted).
 ALU_CYCLES = 4
 SMEM_LOAD_CYCLES = 30
 # Per body: (dependent ALU ops per step, whether a step waits on a shared-
@@ -389,12 +395,12 @@ def _bytes_rec(ms: float, nbytes: int, **extra) -> dict:
 
 
 def time_micro(section: str, arrays, steps: tuple, plain: dict, clock_mhz: float) -> list:
-    """Each body's kernel time (ns per body; at unroll 1 in both forms); its bound (its
-    operations over the card's f32 rate); beside it two floors of the
-    one-block block form: the dependent chain at the SM clock, and the
-    operations over one SM's share of the rate; and the plain version's
-    host time (from the checks' worker run; for exp2's chaotic bodies that
-    run covers the steps compared)."""
+    """Each body's kernel time (ns per body; at unroll 1 in both forms)
+    beside its bound, the dependent chain at the SM clock
+    (`chain_floor_ms`, `bound_by` "latency"), and beside that the card-wide
+    floors: its operations over the card's f32 rate and its bytes; and the
+    plain version's host time (from the checks' worker run; for exp2's
+    chaotic bodies that run covers the steps compared)."""
     outer, unroll = steps
     n = outer * unroll
     x = _dev(arrays, "cuda")
@@ -409,18 +415,22 @@ def time_micro(section: str, arrays, steps: tuple, plain: dict, clock_mhz: float
         ms = {f: graph_ms(lambda *a, b=body, f=f: gp.micro(*a, b, outer, unroll, f), [x],
                           calls) for f in forms}
         rec = {"section": section, "body": body, "bodies": n, "ms": ms["block"],
-               "ns_per_body": ms["block"] * 1e6 / n, "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "chain_floor_ms": chain_ms, "one_sm_ops_ms": ops_ms * SMS,
+               "ns_per_body": ms["block"] * 1e6 / n, "bound_ms": chain_ms,
+               "bound_by": "latency", "chain_floor_ms": chain_ms,
+               "chain_floor_ns_per_body": chain_ms * 1e6 / n,
+               "share_of_floor": chain_ms / ms["block"], "under_floor": ms["block"] < chain_ms,
+               "alu_cycles": ALU_CYCLES, "smem_load_cycles": SMEM_LOAD_CYCLES,
+               "sm_clock_mhz": clock_mhz, "operations_ms": ops_ms, "bytes_ms": bytes_ms,
                "plain_ms": plain[(section, body)].result()[1] * 1e3, "library_ms": None}
         warp = ""
         if "warp" in ms:
             rec.update(warp_form_ms=ms["warp"], warp_form_ns_per_body=ms["warp"] * 1e6 / n)
             warp = f", warp form {rec['warp_form_ns_per_body']:.2f}"
+        under = " (under it: the assumed latencies are too long)" if rec["under_floor"] else ""
         print(f"  {section} micro {body}: block form {rec['ns_per_body']:.2f} ns/body{warp} "
-              f"({n} bodies); block form's floors: dependent chain {chain_ms * 1e6 / n:.2f} ns "
-              f"at {clock_mhz:.0f} MHz, one SM's operations {ops_ms * SMS * 1e6 / n:.2f} ns; "
-              f"the card's operations {ops_ms * 1e6 / n:.4f} ns", flush=True)
+              f"({n} bodies); floor: dependent chain {chain_ms * 1e6 / n:.2f} ns at "
+              f"{clock_mhz:.0f} MHz ({rec['share_of_floor']:.1%}){under}; the card's "
+              f"operations {ops_ms * 1e6 / n:.4f} ns", flush=True)
         recs.append(rec)
     return recs
 

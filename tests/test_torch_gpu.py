@@ -12,7 +12,10 @@ JAX nor rife_tpu, so it also runs where only PyTorch is installed:
 (tests/conftest.py imports JAX; --noconftest skips it on such a machine.)
 """
 import itertools
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -411,6 +414,174 @@ def test_blend_kernel_refuses_what_it_cannot_take():
         cb.launch(x, x.cpu(), f, m, False)
 
 
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of `t` `offset` elements into its storage."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
+_TRIPLES = list(itertools.product((torch.bfloat16, torch.float32), repeat=3))
+_TRIPLE_IDS = ["-".join(str(t)[6:] for t in tr) for tr in _TRIPLES]
+
+
+def _assert_blend(got, want, dtype, label):
+    """w0 and w1 bit-equal to the plain version, the blend within one ulp
+    of the images' dtype at the magnitude of its terms."""
+    for g, wv in zip(got[1:], want[1:]):
+        assert torch.equal(g, wv), label
+    terms = torch.maximum(want[1].float().abs(), want[2].float().abs()).cpu().numpy()
+    err = (got[0].float() - want[0].float()).abs().cpu().numpy()
+    assert np.all(err <= _ulp(terms, dtype)), (label, float(err.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("triple", _TRIPLES, ids=_TRIPLE_IDS)
+@pytest.mark.parametrize("need_pair", [True, False])
+def test_blend_kernel_at_ragged_widths_and_misaligned_views(triple, need_pair):
+    """K2 at widths that are odd, narrower than a row tile or around a run,
+    at C = 3 (the unrolled channel loop) and C = 5, with the flow's and the
+    mask's addresses on or off their runs' bytes (views one element into
+    their storage: value-by-value runs), on smooth, out-of-frame and
+    +-200 px block flows, against its plain version; one launch a call."""
+    _need_card()
+    dtype, flow_dtype, mask_dtype = triple
+    rng = np.random.default_rng(17)
+    for w, c in itertools.product((1, 2, 3, 7, 13, 33, 67, 131, 256, 257), (3, 5)):
+        for kind, layout in itertools.product(("smooth", "out_of_frame", "blocks"),
+                                              ("aligned", "flow_offset", "mask_offset")):
+            n, h = 2, 7
+            a, b = (torch.from_numpy(rng.random((n, c, h, w), np.float32)).cuda().to(dtype)
+                    for _ in range(2))
+            flow = np.concatenate([_flow(rng, n, h, w, kind), _flow(rng, n, h, w, kind)], 1)
+            flow = torch.from_numpy(flow.astype(np.float32)).cuda().to(flow_dtype)
+            mask = torch.from_numpy(rng.normal(0, 3, (n, 1, h, w)).astype(np.float32))
+            mask = mask.cuda().to(mask_dtype)
+            if layout == "flow_offset":
+                flow = _offset_view(flow, 1)
+            elif layout == "mask_offset":
+                mask = _offset_view(mask, 1)
+            before = tw.warp2_blend_planes.launches
+            with tw.use_fuse_blend(True):
+                got = tw.warp2_blend_planes(a, b, flow, mask, need_pair=need_pair)
+            assert tw.warp2_blend_planes.launches == before + 1
+            want = tw.warp2_blend_planes_ref(a, b, flow, mask, need_pair=True)
+            torch.cuda.synchronize()
+            got = got if need_pair else (got,)
+            assert all(g.dtype == dtype for g in got)
+            _assert_blend(got, want, dtype, (w, c, kind, layout))
+
+
+@pytest.mark.gpu
+def test_blend_kernel_refuses_a_plan_that_leaves_pixels_unwritten():
+    """The C entry refuses another run size, a grid short of the row or the
+    rows, vector runs at an odd width, and only one of w0 and w1
+    (cudaErrorInvalidValue, 1); it takes the plan's own."""
+    _need_card()
+    from rife_tpu_torch.ops.cuda import warp_blend as cb
+
+    n, c, h, w = 1, 3, 4, 9
+    x = torch.zeros(n, c, h, w, device="cuda")
+    f, m = torch.zeros(n, 4, h, w, device="cuda"), torch.zeros(n, 1, h, w, device="cuda")
+    p = cb.k2_plan(x, f, m, (x.data_ptr(),))
+    fn = cb.library().warp_blend_f32
+    stream = torch.cuda.current_stream().cuda_stream
+    out, w0 = torch.empty_like(x), torch.empty_like(x)
+    args = lambda o0=None, o1=None: [x.data_ptr(), x.data_ptr(), f.data_ptr(),  # noqa: E731
+                                     m.data_ptr(), out.data_ptr(), o0, o1, n, c, h, w, 0, 0]
+    plan = {"gx": p["gx"], "gy": p["gy"], "tx": p["tx"], "ty": p["ty"], "ppt": p["ppt"],
+            "vec": int(p["vec"])}
+    assert (plan["gx"], plan["gy"], plan["vec"]) == (1, 1, 0)  # W = 9 in one tile, odd
+    assert fn(*args(), *plan.values(), stream) == 0
+    for bad in ({"ppt": p["ppt"] + 1}, {"tx": 1}, {"ty": 1}, {"vec": 1}):
+        assert fn(*args(), *{**plan, **bad}.values(), stream) == 1, bad
+    assert fn(*args(w0.data_ptr()), *plan.values(), stream) == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_blend_kernel_bf16_past_2_31_output_elements():
+    """760 bf16 frame pairs of 3x736x1280 (2.15e9 elements an output, over
+    2^31), with w0 and w1: the planes' 64-bit bases, with 32-bit offsets
+    within a plane.  The first and last frames bit-equal to K2 on those
+    frames alone, and to the plain version there."""
+    _need_card()
+    n, c, h, w = 760, 3, 736, 1280
+    assert n * c * h * w > 2 ** 31
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    a = torch.rand(n, c, h, w, device="cuda", generator=gen, dtype=torch.bfloat16)
+    b = torch.rand(n, c, h, w, device="cuda", generator=gen, dtype=torch.bfloat16)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    phase = torch.arange(n, device="cuda", dtype=torch.float32).view(n, 1, 1)
+    flow = torch.stack([(9 * torch.sin(yy / 40 + phase)).expand(n, h, w),
+                        (7 * torch.cos(xx / 60 + phase)).expand(n, h, w),
+                        (-6 * torch.cos(yy / 30 - phase)).expand(n, h, w),
+                        (5 * torch.sin(xx / 50 - phase)).expand(n, h, w)], 1).bfloat16()
+    mask = (3 * torch.sin(xx / 70 + yy / 90 + phase)).unsqueeze(1).bfloat16()
+    with tw.use_fuse_blend(True):
+        out = tw.warp2_blend_planes(a, b, flow, mask, need_pair=True)
+        for i in (0, n - 1):
+            sl = lambda t: t[i:i + 1].clone()  # noqa: E731
+            one = tw.warp2_blend_planes(sl(a), sl(b), sl(flow), sl(mask), need_pair=True)
+            want = tw.warp2_blend_planes_ref(sl(a), sl(b), sl(flow), sl(mask), True)
+            torch.cuda.synchronize()
+            for o, g in zip(out, one):
+                assert torch.equal(o[i:i + 1], g), i
+            _assert_blend(one, want, torch.bfloat16, i)
+    del a, b, flow, mask, out
+    torch.cuda.empty_cache()
+
+
+# Run in a process of its own: in this file's full run, sessions of the
+# profiler opened after the training and large-tensor tests recorded no
+# device events (or some of them) on the card's machine.
+_BLEND_LAUNCHES = """
+import itertools, json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from rife_tpu_torch.ops import warp as tw
+
+gen = torch.Generator(device="cuda")
+gen.manual_seed(18)
+out = []
+for c, need_pair in itertools.product((3, 5), (True, False)):
+    a, b = (torch.rand(2, c, 40, 72, device="cuda", generator=gen) for _ in range(2))
+    flow = torch.randn(2, 4, 40, 72, device="cuda", generator=gen) * 4
+    mask = torch.randn(2, 1, 40, 72, device="cuda", generator=gen) * 3
+    with tw.use_fuse_blend(True):
+        tw.warp2_blend_planes(a, b, flow, mask, need_pair=need_pair)
+        torch.cuda.synchronize()
+        before = tw.warp2_blend_planes.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tw.warp2_blend_planes(a, b, flow, mask, need_pair=need_pair)
+            torch.cuda.synchronize()
+    out.append({"counted": tw.warp2_blend_planes.launches - before,
+                "kernels": [e.name for e in prof.events()
+                            if e.device_type == DeviceType.CUDA]})
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_blend_kernel_is_one_cuda_launch_a_call():
+    """By the profiler's device events, in a fresh process: one
+    warp_blend kernel a call and no other, in both forms, at C = 3 and
+    C = 5; the counter moves by one a call."""
+    _need_card()
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run([sys.executable, "-c", _BLEND_LAUNCHES], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    calls = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(calls) == 4
+    for call in calls:
+        assert call["counted"] == 1, call
+        assert len(call["kernels"]) == 1 and "warp_blend_kernel" in call["kernels"][0], call
+
+
 @pytest.mark.gpu
 def test_blend_kernel_gradients_are_the_composed_routes():
     _need_card()
@@ -726,6 +897,38 @@ def test_probe_micro_kernel_matches_plain_version(section):
         assert gp.micro.launches == before + len(bodies) * len(forms)
         recs = gp_tool.check_micro(section, outs, arrays, steps, plain, chaotic_outer)
     assert all(r.get("differ_after_4_steps", r["differ"]) == 0 for r in recs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", gp.BODIES)
+def test_probe_micro_block_form_matches_warp_form_and_plain_version(body):
+    """The block form (a block per row, column group or element group) bit-
+    equal to the warp form and to the plain version over 300 steps (NaN
+    payloads not compared: the card's NaN is canonical), and at unroll 32
+    to itself at unroll 1 over 32 x 10 steps; with
+    indices out of range (lane -1, 128, 200; sublane -1, 8) bit-equal to
+    the warp form, NaN where a step gathers one (the plain version raises
+    there)."""
+    _need_card()
+    arrays = gp_tool.micro_inputs(21, 128)
+    x = tuple(torch.from_numpy(a).cuda() for a in arrays)
+    block = gp.micro(*x, body, 300, 1, "block")
+    warp = gp.micro(*x, body, 300, 1, "warp")
+    plain = gp.micro_ref(*(torch.from_numpy(a) for a in arrays), body, 300)
+    assert gp_tool.differing(block, warp.cpu()) == 0
+    assert gp_tool.differing(block, plain) == 0
+    assert gp_tool.differing(gp.micro(*x, body, 10, 32, "block"),
+                             gp.micro(*x, body, 320, 1, "block").cpu()) == 0
+    xv, idx, idx0, w = (a.copy() for a in arrays)
+    idx[0, :3], idx[3, 5], idx[7, 127] = (-1, 128, 200), 128, -1
+    idx0[1, 4], idx0[6, :2] = 8, (-1, 8)
+    bad = tuple(torch.from_numpy(a).cuda() for a in (xv, idx, idx0, w))
+    got_block = gp.micro(*bad, body, 50, 1, "block")
+    got_warp = gp.micro(*bad, body, 50, 1, "warp")
+    torch.cuda.synchronize()
+    assert gp_tool.differing(got_block, got_warp.cpu()) == 0
+    if body in ("lane", "lane2", "v4row", "v5row", "sublane"):
+        assert bool(torch.isnan(got_block).any())
 
 
 @pytest.mark.gpu
