@@ -114,7 +114,32 @@ Phases, each timed against its own budget:
    K3's time, its design and its launch plan; the recurrence's records
    its dependent-chain floor at the SM clock, bound by latency, beside
    the card-wide operations).  No launch of these
-   kernels in phases 4-9.
+   kernels in phases 4-9;
+11. ladder: the paper model's whole family at full width (batch 4, the
+   720p pair padded to 736x1280, or 768x1280 where the engine pads to 64):
+   K1 against its plain version at the launch shapes phase 3 does not
+   check (the half-resolution context levels of rungs 2-3, rife_2r's full-
+   resolution context pyramid, scale 0.5's levels at 768x1280) and K2's
+   pair form at 768x1280; then InferenceEngine("rife") with the r5 weights
+   at rungs 0-4 and with TTA at rung 1, rife_m (t = 0.25 and 0.5, which
+   must differ) and rife_2r from seeded weights (flow heads scaled, flows
+   over 2 px), and rife at scale 0.5 (scale list 8/4/2) and 2 (2/1/0.5,
+   the last level above full resolution), bf16, 3 requests each: the
+   warm-up's K1 launches all at checked shapes, the launches per forward
+   (6 K1 + 1 K2 with the pair at rungs 0-1, 7 + 1 blend-only at rungs 2-3,
+   2 + 1 blend-only at rung 4, twice with TTA), the output finite and in
+   [0, 1], >= 40 dB against the port's own f32 at the same configuration,
+   the f32 card output within 2e-4 of the CPU path at 128x192; ms/request
+   by CUDA events, frames/s, K1's time per forward from its per-shape
+   times;
+12. protocol: the r5 checkpoint through the port's Vimeo90K protocol
+   (PSNR on the uint8-rounded frame, ssim_matlab on the card) over r4's
+   fixture in memory (32 SyntheticTriplets, 256x448, seed 777), in the
+   nine configurations of tools/port_eval_checkpoint.py: the f32 rows
+   exact, fast2 and fast3 within 0.02 dB PSNR and 1e-4 SSIM of the
+   committed CPU rows (rife_tpu_torch/tools/eval_r5_cpu.json), every row
+   printed beside them and beside the TPU's train_log_r5/eval_protocol.json,
+   the launches counted over the whole phase (54 K1 + 9 K2 a triplet).
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -144,7 +169,7 @@ TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
             "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90,
-            "probes": 60}
+            "probes": 60, "ladder": 150, "protocol": 90}
 # Phase 10 compares r3_exp2.py's chaotic bodies over this many steps of 32
 # bodies (the whole run, 40000, takes the plain version minutes; the tool
 # compares it).
@@ -210,6 +235,51 @@ SMOKE_DTYPE = torch.bfloat16
 # C >= 8.  The flows are contiguous 2-channel NHWC tensors; hd's half-
 # resolution frames are channel slices of the 6-channel downsampled pair.
 LEGACY_FLOW_GAIN = 20.0
+# Phase 11, the paper model's family at full width: (label, model, rung,
+# scale, timestep, TTA, K1 launches per forward, whether the final K2
+# launch stores the pair).  From rung 2 the refine stage runs one octave
+# down (one more pair warp; its 4 context levels at half resolution), from
+# rung 3 the final flow level too (scale list (4, 2, 2)), at rung 4 there
+# is no refine stage; K2 stores w0/w1 only where the full-resolution U-Net
+# reads them.  rife_2r has no fast rungs (its context level 0 runs at full
+# resolution); TTA doubles each count.  rife_m and rife_2r have no weights
+# in the repo: seeded ones, each block's flow head scaled by
+# FAMILY_FLOW_GAIN (at random init their flows stay near a pixel).
+LADDER_CONFIGS = [
+    *((f"rife rung {r}", "rife", r, 1.0, 0.5, False, k1, pair)
+      for r, k1, pair in ((0, 6, True), (1, 6, True), (2, 7, False), (3, 7, False),
+                          (4, 2, False))),
+    ("rife rung 1 TTA", "rife", 1, 1.0, 0.5, True, 6, True),
+    ("rife_m t=0.25", "rife_m", 1, 1.0, 0.25, False, 6, True),
+    ("rife_m t=0.5", "rife_m", 1, 1.0, 0.5, False, 6, True),
+    ("rife_2r", "rife_2r", 1, 1.0, 0.5, False, 6, True),
+    ("rife scale 0.5", "rife", 1, 0.5, 0.5, False, 6, True),
+    ("rife scale 2", "rife", 1, 2.0, 0.5, False, 6, True),
+]
+LADDER_REQUESTS = 3
+FAMILY_FLOW_GAIN = 4.0
+# K1's launch shapes on phase 11's paths that phase 3 does not check (bf16
+# image and flow, N = 2 x BATCH): (name, C, H, W).  The warm-up of each
+# configuration records its launches, which must all be checked shapes.
+LADDER_WARPS = [
+    ("rungs 2-3: context level 0, half res", 16, 184, 320),
+    ("rungs 2-3: context level 1, half res", 32, 92, 160),
+    ("rungs 2-3: context level 2, half res", 64, 46, 80),
+    ("rungs 2-3: context level 3, half res", 128, 23, 40),
+    ("rife_2r: context level 0, full res", 16, 736, 1280),
+    ("rife_2r: context level 1", 32, 368, 640),
+    ("rife_2r: context level 2", 64, 184, 320),
+    ("rife_2r: context level 3", 128, 92, 160),
+    ("scale 0.5 (768x1280): level-1 input at 1/4", 3, 192, 320),
+    ("scale 0.5 (768x1280): level-2 input at 1/2", 3, 384, 640),
+    ("scale 0.5 (768x1280): context level 0", 16, 384, 640),
+    ("scale 0.5 (768x1280): context level 1", 32, 192, 320),
+    ("scale 0.5 (768x1280): context level 2", 64, 96, 160),
+    ("scale 0.5 (768x1280): context level 3", 128, 48, 80),
+]
+# Phase 12: the card's f32 protocol rows against the committed CPU rows.
+PROTOCOL_GATED = ("exact-f32", "fast2-f32", "fast3-f32")
+PROTOCOL_TOL = {"psnr": 0.02, "ssim": 1e-4}
 LEGACY_WARPS = [
     ("pair of frames, full res", 3, 8, 736, 1280, 3, 4, 0),
     ("half-res frame of the 6-channel pair", 3, 4, 368, 640, 6, 0, 6),
@@ -1061,14 +1131,14 @@ def recorded_nhwc(cuda_nhwc):
         cuda_nhwc.launch_k3, cuda_nhwc.launch_k4 = k3, k4
 
 
-def events_ms(eng, a, b, requests) -> float:
+def events_ms(eng, a, b, requests, *args) -> float:
     """ms per request on the device clock (CUDA events around `requests`
-    requests)."""
+    requests; `args` follow the pair into `interpolate`)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(requests):
-        eng.interpolate(a, b)
+        eng.interpolate(a, b, *args)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / requests
@@ -1496,6 +1566,177 @@ def probe_rows(probes: dict, smi: str) -> list:
         "probe_path_launches": launches, "card": smi}]
 
 
+def family_state_dict(model: str, seed: int = 0) -> dict:
+    """Seeded random weights of `rife_m` or `rife_2r` (the port's
+    `ModelDef.init`), each block's flow head (lastconv's first 4 output
+    channels) scaled by FAMILY_FLOW_GAIN."""
+    from rife_tpu_torch.models import get_model_def
+
+    sd = get_model_def(model).init(torch.Generator().manual_seed(seed))
+    for i in range(3):
+        sd[f"block{i}.lastconv.weight"][:, :4] *= FAMILY_FLOW_GAIN
+        sd[f"block{i}.lastconv.bias"][:4] *= FAMILY_FLOW_GAIN
+    return sd
+
+
+@contextlib.contextmanager
+def recorded_blend(cuda_blend):
+    """Inside: every K2 launch also records whether it stores the pair."""
+    seen = []
+    launch = cuda_blend.launch
+
+    def recorded(*args):
+        seen.append(bool(args[4]))
+        return launch(*args)
+
+    cuda_blend.launch = recorded
+    try:
+        yield seen
+    finally:
+        cuda_blend.launch = launch
+
+
+def ladder_path(dev, warp_mod, cuda_warp, cuda_blend, checked_records):
+    """Phase 11: the paper model's family at full width (see the module
+    docstring).  `checked_records` are phase 3's K1 records.  Returns the
+    per-configuration records, K1's records at the new shapes and both
+    kernels' largest errors."""
+    from rife_tpu_torch.engine import (InferenceEngine, load_checkpoint,
+                                       state_dict_from_jax)
+    from rife_tpu_torch.ops import pad_to_multiple
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    records = [time_fwd_launch(warp_mod, dev, gen, name, 2 * BATCH, c, h, w)
+               for name, c, h, w in LADDER_WARPS]
+    worst = max(r["max_abs_err"] for r in records)
+    x = blend_inputs(BATCH, 3, 768, 1280, gen, dev, torch.bfloat16, torch.bfloat16)
+    worst_blend = check_blend(warp_mod, *x, True, "scale 0.5 final level, with the pair "
+                              f"{tuple(x[0].shape)} bf16")
+    checked = {tuple(r["img"]): r for r in checked_records + records}
+    weights = {"rife": state_dict_from_jax(load_checkpoint(CKPT)[1]),
+               "rife_m": family_state_dict("rife_m"), "rife_2r": family_state_dict("rife_2r")}
+    a_np, b_np = smooth_pair(BATCH, FRAME_H, FRAME_W, PAN)
+    padded = {}
+    sa, sb = smooth_pair(2, 128, 192, 6, seed=13)
+    rec, outs = {}, {}
+    for label, model, rung, scale, t, tta, k1, pair in LADDER_CONFIGS:
+        sd = weights[model]
+        eng = InferenceEngine(model, sd, compute_dtype=torch.bfloat16, fast=rung,
+                              scale=scale, device=dev)
+        m = eng.pad_multiple
+        if m not in padded:
+            pa, pad = pad_to_multiple(torch.from_numpy(a_np), m)
+            padded[m] = (pa.to(dev), pad_to_multiple(torch.from_numpy(b_np), m)[0].to(dev),
+                         pad)
+        a, b, pad = padded[m]
+        with recorded_launches(cuda_warp) as seen:  # the warm-up request
+            eng.interpolate(a, b, t, tta)
+            torch.cuda.synchronize()
+        shapes = [s[:4] for s in seen["fwd"]]
+        unchecked = sorted(set(shapes) - set(checked))
+        if unchecked:
+            raise AssertionError(f"{label}: K1 launches at shapes no check covered: "
+                                 f"{unchecked}")
+        times = 2 if tta else 1
+        reset_counts(warp_mod)
+        with recorded_blend(cuda_blend) as forms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LADDER_REQUESTS):
+                out = eng.interpolate(a, b, t, tta)
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / LADDER_REQUESTS * 1e3
+        counts = read_counts(warp_mod)
+        k1_last, k2 = final_launches(warp_mod)
+        check_counts(counts, LADDER_REQUESTS, times * (k1 + k1_last), times * k2, label)
+        if forms != [pair] * (LADDER_REQUESTS * times * k2):
+            raise AssertionError(f"{label}: K2 forms {forms}, expected "
+                                 f"{'the pair' if pair else 'blend only'}")
+        check_frame(out, a.shape, label)
+        ms = events_ms(eng, a, b, LADDER_REQUESTS, t, tta)
+        eng32 = InferenceEngine(model, sd, compute_dtype=torch.float32, fast=rung,
+                                scale=scale, device=dev)
+        quality = psnr(pad.crop(out).float(), pad.crop(eng32.interpolate(a, b, t, tta)))
+        on_card = eng32.interpolate(sa, sb, t, tta).cpu()
+        on_cpu = InferenceEngine(model, sd, fast=rung, scale=scale,
+                                 device="cpu").interpolate(sa, sb, t, tta)
+        diff = float((on_card - on_cpu).abs().max())
+        r = {"model": model, "rung": rung, "scale": scale, "timestep": t, "tta": tta,
+             "scale_list": list(eng.scale_list), "pair": [int(a.shape[1]), int(a.shape[2])],
+             "launches": counts, "k1_per_forward": k1, "k2_per_forward": k2,
+             "k2_form": "pair" if pair else "blend only",
+             "k1_launch_shapes": [list(s) for s in shapes],
+             "k1_ms_per_forward": sum(checked[s]["ms"] for s in shapes) / times,
+             "k1_bound_ms_per_forward": sum(checked[s]["bound_ms"] for s in shapes) / times,
+             "ms_per_request": ms, "host_ms_per_request": host_ms,
+             "frames_per_s": BATCH * 1e3 / ms, "psnr_bf16_vs_f32_db": quality,
+             "f32_card_vs_cpu_max_abs": diff}
+        if model != "rife":
+            _, flow = eng.forward(a, b, t, with_flow=True)
+            r["max_abs_flow_px"] = float(flow.float().abs().max())
+            if not r["max_abs_flow_px"] > 2.0:
+                raise AssertionError(f"{label}: flows under 2 px leave the warps idle")
+        log(f"  {label} ({tuple(a.shape)}, scale list {eng.scale_list}): {ms:.2f} "
+            f"ms/request (host {host_ms:.2f}), {BATCH * 1e3 / ms:.2f} frames/s; "
+            f"K1 {times * k1} + K2 {times * k2} ({r['k2_form']}) a request; bf16 vs f32 "
+            f"{quality:.2f} dB (>= 40); f32 card vs CPU at 128x192 {diff:.3g} (<= 2e-4)"
+            + (f"; max |flow| {r['max_abs_flow_px']:.1f} px" if model != "rife" else ""))
+        if not quality >= 40.0:
+            raise AssertionError(f"{label}: bf16 at {quality:.2f} dB against f32")
+        if not diff <= 2e-4:
+            raise AssertionError(f"{label}: the card's f32 result disagrees with the CPU path")
+        rec[label], outs[label] = r, out
+        del eng, eng32
+    moved = float((outs["rife_m t=0.25"].float() - outs["rife_m t=0.5"].float()).abs().mean())
+    log(f"  rife_m t=0.25 vs t=0.5: mean |diff| = {moved:.4g} (> 0)")
+    if not moved > 0:
+        raise AssertionError("rife_m: the timestep does not reach the model")
+    rec["rife_m_t0.25_vs_t0.5_mean_abs"] = moved
+    del outs, padded, weights
+    torch.cuda.empty_cache()
+    return rec, records, worst, worst_blend
+
+
+def protocol_path(dev, warp_mod):
+    """Phase 12: the r5 checkpoint through the port's Vimeo90K protocol on
+    the card, over r4's fixture in memory, in the nine configurations of
+    tools/port_eval_checkpoint.py; the f32 rows in PROTOCOL_GATED against
+    the committed CPU rows, every row beside them and the TPU's JSON."""
+    from tools.port_eval_checkpoint import CONFIGS, fixture, port_rows
+
+    with open(os.path.join(ROOT, "rife_tpu_torch", "tools", "eval_r5_cpu.json")) as f:
+        cpu = json.load(f)
+    with open(os.path.join(ROOT, "train_log_r5", "eval_protocol.json")) as f:
+        tpu = json.load(f)
+    n = cpu["fixture"]["n"]
+    triplets = fixture(n, cpu["fixture"]["seed"])
+    k1_of_rung = {c[2]: c[6] for c in LADDER_CONFIGS[:5]}  # rife, rungs 0-4
+    k1_last, k2 = final_launches(warp_mod)
+    reset_counts(warp_mod)
+    rows = port_rows(CKPT, triplets, [c[0] for c in CONFIGS], device=dev, log=log)
+    counts = read_counts(warp_mod)
+    check_counts(counts, n, sum(k1_of_rung[r] + k1_last for _, _, r in CONFIGS),
+                 k2 * len(CONFIGS), "protocol")
+    failed = []
+    for label, row in rows.items():
+        c, t = cpu["port"][label], tpu.get(label)
+        row["cpu"] = c
+        row["rife_tpu_cpu"] = cpu.get("reference_cpu", {}).get(label)
+        row["tpu_json"] = None if t is None else {"psnr": t["psnr"], "ssim": t["ssim"]}
+        d = {k: row[k] - c[k] for k in ("psnr", "ssim")}
+        gated = label in PROTOCOL_GATED
+        if gated and not all(abs(d[k]) <= PROTOCOL_TOL[k] for k in d):
+            failed.append(label)
+        log(f"  {label}: card {row['psnr']:.4f} dB / {row['ssim']:.6f}, CPU "
+            f"{c['psnr']:.4f} / {c['ssim']:.6f} ({d['psnr']:+.4f} dB, {d['ssim']:+.2e}"
+            f"{'; gate 0.02 dB, 1e-4' if gated else ', not gated'}), TPU JSON "
+            + ("none" if t is None else f"{t['psnr']:.4f} / {t['ssim']:.6f}"))
+    if failed:
+        raise AssertionError(f"protocol rows off the committed CPU rows: {failed}")
+    return {"rows": rows, "launches": counts, "triplets": n}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     signal.alarm(HARD_STOP_S)  # SIGALRM ends the run if anything hangs
@@ -1566,6 +1807,13 @@ def main() -> int:
     with Phase("probes"):
         probes = probes_path(dev, warp_mod)
 
+    with Phase("ladder"):
+        ladder, ladder_records, ladder_worst, ladder_blend_worst = ladder_path(
+            dev, warp_mod, cuda_warp, cuda_blend, records)
+
+    with Phase("protocol"):
+        protocol = protocol_path(dev, warp_mod)
+
     per_fwd = lambda recs, key, n="launches_per_forward": sum(  # noqa: E731
         r[key] * r[n] for r in recs)
     per_step = lambda key: sum(r[key] * r["launches_per_step"]  # noqa: E731
@@ -1576,7 +1824,10 @@ def main() -> int:
                          "serve v4.25 rung 1": v425["rung1"]["launches"][k],
                          "serve v4.25 rung 0": v425["rung0"]["launches"][k],
                          "train": train["launches"][k],
-                         **{f"serve {p}": legacy[p]["launches"][k] for p in legacy}}
+                         **{f"serve {p}": legacy[p]["launches"][k] for p in legacy},
+                         **{f"serve {c[0]}": ladder[c[0]]["launches"][k]
+                            for c in LADDER_CONFIGS},
+                         "protocol": protocol["launches"][k]}
 
     def nhwc_row(kernel, replaces, **extra):
         recs = [r for r in nhwc_records if r["kernel"] == kernel]
@@ -1599,7 +1850,7 @@ def main() -> int:
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
         "launches": sum(by_path("warp_planes").values()),
         "launches_by_path": by_path("warp_planes"),
-        "max_abs_err": max(worst, fwd_worst_train),
+        "max_abs_err": max(worst, fwd_worst_train, ladder_worst),
         "ms": per_fwd(records, "ms"), "plain_ms": per_fwd(records, "plain_ms"),
         "bound_ms": per_fwd(records, "bound_ms"), "bound_by": bound_by(records),
         "library_ms": per_fwd(records, "library_ms"),
@@ -1611,7 +1862,12 @@ def main() -> int:
         "v425_rung1_forward": {k: per_fwd(v425_records, k, "launches_per_rung1_forward")
                                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "per_launch": records + v425_records, "main_path": main, "v425_path": v425,
-        "card": smi}, {
+        "ladder": {c[0]: {k: ladder[c[0]][k] for k in
+                          ("k1_per_forward", "k1_ms_per_forward", "k1_bound_ms_per_forward",
+                           "k2_per_forward", "k2_form")}
+                   for c in LADDER_CONFIGS},
+        "per_launch_ladder": ladder_records, "ladder_path": ladder,
+        "protocol_path": protocol, "card": smi}, {
         "name": "warp_planes_bwd", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_planes_bwd.cu",
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
@@ -1633,14 +1889,18 @@ def main() -> int:
         "replaces": "rife_tpu/ops/pallas/warp_blend.py:215",
         "launches": sum(by_path("warp_blend").values()),
         "launches_by_path": by_path("warp_blend"),
-        "max_abs_err": blend_worst,
+        "max_abs_err": max(blend_worst, ladder_blend_worst),
         "ms": v425_blend["ms"], "plain_ms": v425_blend["plain_ms"],
         "bound_ms": v425_blend["bound_ms"], "bound_by": v425_blend["bound_by"],
         "library_ms": v425_blend["library_ms"],
         "share_of_bound": v425_blend["share_of_bound"],
         "times_are": "per v4.25 forward (one blend-only launch)",
         "design": K2_DESIGN, "plan": {r["launch"]: r["plan"] for r in blend_records},
-        "per_launch": blend_records, "ab": ab, "card": smi},
+        "per_launch": blend_records, "ab": ab,
+        "launches_per_forward_by_rung": {c[0]: {"launches": ladder[c[0]]["k2_per_forward"],
+                                                "form": ladder[c[0]]["k2_form"]}
+                                         for c in LADDER_CONFIGS},
+        "card": smi},
         nhwc_row("k3", "rife_tpu/ops/pallas/warp.py:232", design=K3_DESIGN),
         nhwc_row("k4", "rife_tpu/ops/pallas/warp_v4.py:182", legacy_path=legacy), {
         "name": "k5", "wrapper": "rife_tpu_torch.ops.conv_chain.conv_chain",

@@ -255,7 +255,10 @@ def _flatten(tree, prefix="", sep="."):
 
 def state_dict_from_jax(params, model: str = "rife") -> dict[str, torch.Tensor]:
     """Reference parameter tree (numpy or JAX arrays) of `model` -> state
-    dict of this package's modules.
+    dict of this package's modules.  Any model of the registry: `rife_m`
+    (block inputs 7/18/18, teacher 21) and `rife_2r` carry like `rife`,
+    and a tree without the refine stage (`refine=False`) gives a state
+    dict without `contextnet.`/`unet.` keys.
 
     - conv "w" HWIO -> "weight" OIHW; "b" -> "bias";
     - transposed conv "w", stored pre-flipped as (kh, kw, I, O) -> torch's

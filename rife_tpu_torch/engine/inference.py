@@ -2,8 +2,9 @@
 
 `interpolate` takes a padded NHWC pair in [0, 1] and returns the NHWC
 middle frame in the compute dtype, like the reference, so callers can
-swap packages.  The engine runs on `cuda` unless `device="cpu"` is
-given; without a card it raises rather than carry on on the CPU.
+swap packages; `forward` also returns the final flow on request.  The
+engine runs on `cuda` unless `device="cpu"` is given; without a card it
+raises rather than carry on on the CPU.
 PyTorch runs eagerly, so there is no per-shape compile cache.
 """
 from __future__ import annotations
@@ -63,55 +64,75 @@ def full_f32():
 
 
 class InferenceEngine:
-    def __init__(self, model: str, params: dict, *,
+    def __init__(self, model: str = "rife", params: dict | None = None, *,
                  compute_dtype: torch.dtype = torch.float32, scale: float = 1.0,
-                 fast: bool | int = False, device=None):
+                 seed: int = 0, fast: bool | int = False, device=None):
         """params: a state dict of the model (see
-        engine.checkpoint.state_dict_from_jax).  fast: the approximation
-        rung, as in the reference: 0 is the exact graph, 1 the serving
-        default (fast_level0).  v4.25 has nothing more to approximate, so
-        its rungs 1-4 all mean fast_level0; the legacy models (`hd`,
-        `hdv2`) have no rungs and take every rung as the exact graph; the
-        paper model's rungs 2-4 are not ported yet.  scale: the reference's
-        knob, each level's divisor over it (the legacy models' divisor
-        scale_list[0] = 1 / scale)."""
+        engine.checkpoint.state_dict_from_jax), or None for torch-default
+        initial weights drawn from `torch.Generator().manual_seed(seed)`
+        (`ModelDef.init`; not the reference's draws).  fast: the
+        approximation rung, as in the reference: 0 is the exact graph, 1
+        the serving default (fast_level0), 2 adds the half-resolution
+        refine stage (fast_refine), 3 the final flow level at half
+        resolution (scale list (4, 2, 1) -> (4, 2, 2)), 4 the refine stage
+        off.  v4.25 has only fast_level0 to turn on, so its rungs 1-4 all
+        mean that; the legacy models (`hd`, `hdv2`) have no rungs and take
+        every rung as the exact graph.  scale: the reference's knob, each
+        level's divisor over it (the legacy models' divisor scale_list[0]
+        = 1 / scale)."""
         self.model_def: ModelDef = get_model_def(model)
         self.model_name = model
         rung = int(fast)
         if not 0 <= rung <= 4:
             raise ValueError(f"fast rung {rung}: the rungs are 0-4")
-        if rung >= 2 and isinstance(self.model_def.config, IFNetConfig):
-            raise NotImplementedError(f"fast rung {rung} is not ported yet "
-                                      f"(ROADMAP.md, queue A item 4)")
-        if rung >= 1 and hasattr(self.model_def.config, "fast_level0"):
+        cfg = self.model_def.config
+        if rung >= 1 and hasattr(cfg, "fast_level0"):
+            repl = {"fast_level0": True}
+            if rung >= 2 and hasattr(cfg, "fast_refine"):
+                repl["fast_refine"] = True
+            if rung >= 4 and hasattr(cfg, "refine"):
+                repl["refine"] = False
             self.model_def = dataclasses.replace(
-                self.model_def, config=dataclasses.replace(
-                    self.model_def.config, fast_level0=True))
+                self.model_def, config=dataclasses.replace(cfg, **repl))
+            if rung >= 3 and tuple(self.model_def.scale_list) == (4.0, 2.0, 1.0):
+                self.model_def = dataclasses.replace(self.model_def,
+                                                     scale_list=(4.0, 2.0, 2.0))
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.scale = scale
         self.scale_list = tuple(s / scale for s in self.model_def.scale_list)
-        net = self.model_def.build(self.model_def.config)
+        cfg = self.model_def.config
+        if params is None:
+            params = self.model_def.init(torch.Generator().manual_seed(seed))
+        # Rung 4 reads no refine stage, but a full checkpoint carries one:
+        # load it all (strictly) and drop the stage after.
+        full = (isinstance(cfg, IFNetConfig) and not cfg.refine
+                and any(k.startswith("unet.") for k in params))
+        net = self.model_def.build(dataclasses.replace(cfg, refine=True) if full else cfg)
         net.load_state_dict(params)  # strict: the checkpoint holds every key
         if hasattr(net, "block_tea"):
             net.block_tea = None  # the training-only teacher stays off the card
+        if full:
+            net.cfg, net.contextnet, net.unet = cfg, None, None
         # The legacy models keep their activations (and so their weights)
         # channels-last; the others take planes.
-        self.channels_last = isinstance(self.model_def.config, _CHANNELS_LAST)
+        self.channels_last = isinstance(cfg, _CHANNELS_LAST)
         net = net.to(self.device, compute_dtype)
         if self.channels_last:
             net = net.to(memory_format=torch.channels_last)
         self.model = net.eval()
 
     @torch.inference_mode()
-    def interpolate(self, img0, img1, timestep=0.5,
-                    tta: bool = False) -> torch.Tensor:
-        """The frame at `timestep` (a float or a per-pair (N,) array) for
-        a padded NHWC pair in [0, 1].  Models without a timestep input
-        (`rife`) give the midpoint whatever it is, as in the reference."""
-        if tta:
-            raise NotImplementedError("the TTA flip ensemble is not ported yet "
-                                      "(ROADMAP.md, queue A item 5)")
+    def forward(self, img0, img1, timestep=0.5, tta: bool = False,
+                with_flow: bool = False):
+        """The frame at `timestep` (a float or a per-pair (N,) array) for a
+        padded NHWC pair in [0, 1], in the compute dtype (reference
+        `_forward`).  Models without a timestep input (`rife`, `rife_2r`)
+        give the midpoint whatever it is, as in the reference.  tta: the
+        reference's ensemble, (mid + flip(mid of the flipped pair)) / 2 in
+        the compute dtype, the flip reversing both H and W.  with_flow:
+        also return the final level's flow, NHWC (of the unflipped pair),
+        which the spatial shard's motion guard reads."""
         a, b = (self._input(x) for x in (img0, img1))
         kw = {}
         if self.supports_timestep:
@@ -120,7 +141,17 @@ class InferenceEngine:
         with (full_f32() if self.compute_dtype == torch.float32
               else contextlib.nullcontext()):
             out = self.model(a, b, scale_list=self.scale_list, **kw)
-        return from_planes(out["merged"][-1])
+            mid = from_planes(out["merged"][-1])
+            if tta:
+                # torch.flip copies, so the kernels get contiguous planes.
+                out2 = self.model(torch.flip(a, (2, 3)), torch.flip(b, (2, 3)),
+                                  scale_list=self.scale_list, **kw)
+                mid = (mid + torch.flip(from_planes(out2["merged"][-1]), (1, 2))) / 2
+        return (mid, from_planes(out["flow_list"][-1])) if with_flow else mid
+
+    def interpolate(self, img0, img1, timestep=0.5, tta: bool = False) -> torch.Tensor:
+        """The NHWC frame at `timestep` for a padded NHWC pair (`forward`)."""
+        return self.forward(img0, img1, timestep, tta)
 
     def _input(self, img) -> torch.Tensor:
         """An NHWC frame batch -> (N, 3, H, W) in the compute dtype on the

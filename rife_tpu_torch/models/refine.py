@@ -1,10 +1,12 @@
 """Context pyramid and fusion U-Net (the refinement stage), on NCHW.
 
-Port of rife_tpu/models/refine.py (paper nets; the half-resolution "2R"
-variant is not ported yet).  ContextNet extracts a 4-level feature
-pyramid from an image and warps each level by the progressively halved
-flow; UNet fuses images, warps, mask, flow and both pyramids into a
-sigmoid residual image.
+Port of rife_tpu/models/refine.py: the paper nets and the
+half-resolution "2R" variant (`half_res`).  ContextNet extracts a 4-level
+feature pyramid from an image and warps each level by the progressively
+halved flow; UNet fuses images, warps, mask, flow and both pyramids into
+a sigmoid residual image.  With `half_res`, ContextNet's conv1 runs at
+stride 1 and its first warp takes the flow unscaled, and UNet's down0
+runs at stride 1 and its last conv at stride 2 (reference refine_2R.py).
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ class Conv2Block(nn.Module):
 
 
 class ContextNet(nn.Module):
-    def __init__(self):
+    def __init__(self, half_res: bool = False):
         super().__init__()
-        self.conv1 = Conv2Block(3, _C)
+        self.half_res = half_res
+        self.conv1 = Conv2Block(3, _C, 1 if half_res else 2)
         self.conv2 = Conv2Block(_C, 2 * _C)
         self.conv3 = Conv2Block(2 * _C, 4 * _C)
         self.conv4 = Conv2Block(4 * _C, 8 * _C)
@@ -41,9 +44,10 @@ class ContextNet(nn.Module):
         """img (N, 3, H, W), flow (N, 2, H, W) -> 4 warped feature levels."""
         feats = []
         x = img
-        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+        for i, conv in enumerate((self.conv1, self.conv2, self.conv3, self.conv4)):
             x = conv(x)
-            flow = plane_down2(flow) * 0.5
+            if i or not self.half_res:
+                flow = plane_down2(flow) * 0.5
             feats.append(warp_planes(x, flow))
         return feats
 
@@ -56,9 +60,10 @@ class ContextNet(nn.Module):
 
 
 class UNet(nn.Module):
-    def __init__(self):
+    def __init__(self, half_res: bool = False):
         super().__init__()
-        self.down0 = Conv2Block(17, 2 * _C)
+        self.half_res = half_res
+        self.down0 = Conv2Block(17, 2 * _C, 1 if half_res else 2)
         self.down1 = Conv2Block(4 * _C, 4 * _C)
         self.down2 = Conv2Block(8 * _C, 8 * _C)
         self.down3 = Conv2Block(16 * _C, 16 * _C)
@@ -80,4 +85,5 @@ class UNet(nn.Module):
         x = self.up1(cat([x, s2], 1))
         x = self.up2(cat([x, s1], 1))
         x = self.up3(cat([x, s0], 1))
-        return torch.sigmoid(conv2d(x, self.conv.weight, self.conv.bias))
+        return torch.sigmoid(conv2d(x, self.conv.weight, self.conv.bias,
+                                    2 if self.half_res else 1))

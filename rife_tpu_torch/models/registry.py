@@ -1,9 +1,10 @@
-"""Model presets (port of rife_tpu/models/registry.py: the `rife`,
-`v4.25`, `hd` and `hdv2` entries and the checkpoint detection).
+"""Model presets (port of rife_tpu/models/registry.py: every entry, `rife`,
+`rife_m`, `rife_2r`, `v4.25`, `hd` and `hdv2`, and the checkpoint
+detection).
 
-`rife_m` and `rife_2r` are not ported yet (ROADMAP.md, queue A item 4).
-The legacy models `hd` and `hdv2` are served; training them is not
-ported yet (queue A item 13)."""
+The repo holds no weights of `rife_m` or `rife_2r`; they run from
+`ModelDef.init`.  The legacy models `hd` and `hdv2` are served; training
+them is not ported yet (ROADMAP.md, queue A item 13)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -32,6 +33,8 @@ class ModelDef:
 
 MODEL_REGISTRY: dict[str, ModelDef] = {
     "rife": ModelDef("rife", IFNetConfig(), IFNet, (4.0, 2.0, 1.0)),
+    "rife_m": ModelDef("rife_m", IFNetConfig(variant="rife_m"), IFNet, (4.0, 2.0, 1.0)),
+    "rife_2r": ModelDef("rife_2r", IFNetConfig(half_res=True), IFNet, (4.0, 2.0, 1.0)),
     # The scale-16 level halves twice more inside its block: pad to 64.
     "v4.25": ModelDef("v4.25", V425Config(), V425, (16.0, 8.0, 4.0, 2.0, 1.0),
                       pad_multiple=64),
@@ -43,9 +46,7 @@ MODEL_REGISTRY: dict[str, ModelDef] = {
 
 def get_model_def(name: str) -> ModelDef:
     if name not in MODEL_REGISTRY:
-        raise NotImplementedError(f"model {name!r} is not ported yet "
-                                  f"(ROADMAP.md, queue A); ported: "
-                                  f"{sorted(MODEL_REGISTRY)}")
+        raise KeyError(f"unknown model {name!r}; the models: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
 
 

@@ -72,17 +72,28 @@ def test_engine_bf16_close_to_own_f32(r5_state_dict):
     assert _psnr(got.float().numpy(), ref.numpy()) >= 40.0
 
 
-def test_engine_refuses_what_is_not_ported(r5_state_dict):
-    for kwargs in ({"fast": 2}, {"fast": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine("rife", r5_state_dict, device="cpu", **kwargs)
-    for model in ("rife_m", "rife_2r"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(model, r5_state_dict, device="cpu")
-    eng = InferenceEngine("rife", r5_state_dict, device="cpu")
-    z = np.zeros((1, 32, 32, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.interpolate(z, z, tta=True)
+def test_v425_refuses_scales_other_than_even_integers_in_both_packages():
+    """What both packages still refuse: v4.25's levels take 1 or even
+    integers only (rife_tpu/models/v425.py:202 asserts it at trace)."""
+    import functools
+
+    import jax
+
+    from rife_tpu.models.v425 import V425Config as JaxV425Config
+    from rife_tpu.models.v425 import init_v425, v425_apply
+    from rife_tpu_torch.models import get_model_def
+
+    odd = tuple(s / 0.75 for s in (16.0, 8.0, 4.0, 2.0, 1.0))
+    shapes = jax.eval_shape(lambda k: init_v425(k, JaxV425Config()), jax.random.PRNGKey(0))
+    z = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
+    with pytest.raises(AssertionError):
+        jax.eval_shape(functools.partial(v425_apply, scale_list=odd), shapes, z, z)
+    sd = get_model_def("v4.25").init(torch.Generator().manual_seed(0))
+    eng = InferenceEngine("v4.25", sd, scale=0.75, device="cpu")
+    assert eng.scale_list == odd
+    with pytest.raises(ValueError, match="even integers"):
+        eng.interpolate(np.zeros((1, 64, 64, 3), np.float32),
+                        np.zeros((1, 64, 64, 3), np.float32))
 
 
 def _tf32_flags():

@@ -2,7 +2,9 @@
 the fused pair warp + blend kernel, the NHWC warps K3/K4, the convblock
 chain kernel K5 and the gather probes K6-K8 against their plain versions,
 the engines of every served model through the kernels against the CPU
-path, and two training steps through the warp kernels.
+path (the paper model at every rung of its ladder, with TTA and at scale
+2), the SSIM family against the CPU, and two training steps through the
+warp kernels.
 
 Marked `gpu`; each test skips without a card.  This file imports neither
 JAX nor rife_tpu, so it also runs where only PyTorch is installed:
@@ -1083,3 +1085,139 @@ def test_probe_kernels_refuse_what_they_cannot_take():
         gp.warp_nhwc_cb1(img, torch.zeros(1, 4, 5, 2, device="cuda"))
     assert counts == (gp.micro.launches, gp.select_rows.launches, gp.tile_gather.launches,
                       gp.warp_nhwc_cb1.launches)
+
+
+# K1 launches and the K2 form per `rife` forward at each rung
+# (tests/test_torch_ladder.py counts the same on both packages on the CPU).
+_LADDER = {0: (6, True), 1: (6, True), 2: (7, False), 3: (7, False), 4: (2, False)}
+
+
+@pytest.fixture(scope="module")
+def r5_sd():
+    _need_card()
+    return state_dict_from_jax(load_checkpoint(CKPT)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rung", sorted(_LADDER))
+def test_each_rung_launches_what_the_ladder_says(r5_sd, rung):
+    """K1 and K2 launches per forward by the wrappers' counters (K2 in its
+    blend-only form from rung 2 on, a K1 launch instead with the switch
+    off), twice that with TTA; the f32 output against the CPU path."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    k1, pair = _LADDER[rung]
+    eng = InferenceEngine("rife", r5_sd, fast=rung)
+    forms = []
+    launch = tw._cuda_blend.launch
+
+    def recorded(*args):
+        forms.append(args[4])
+        return launch(*args)
+
+    tw._cuda_blend.launch = recorded
+    try:
+        for fused, tta in ((True, False), (True, True), (False, False)):
+            before, before2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+            forms.clear()
+            with tw.use_fuse_blend(fused):
+                got = eng.interpolate(a, b, tta=tta)
+            torch.cuda.synchronize()
+            times = 2 if tta else 1
+            assert tw.warp_planes.launches - before == times * (k1 + (0 if fused else 1))
+            assert tw.warp2_blend_planes.launches - before2 == (times if fused else 0)
+            assert forms == ([pair] * times if fused else [])
+    finally:
+        tw._cuda_blend.launch = launch
+    ref = InferenceEngine("rife", r5_sd, fast=rung, device="cpu").interpolate(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_blend_only_launch_inside_a_rung2_forward_matches_plain_version(r5_sd):
+    """The K2 launch a rung-2 bf16 forward makes (blend only, at the
+    forward's own flow and mask) against its plain version on the same
+    inputs: within one bf16 ulp of the blend's terms."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    seen = []
+    launch = tw._cuda_blend.launch
+
+    def recorded(*args):
+        out = launch(*args)
+        seen.append(([t.clone() for t in args[:4]], args[4], out))
+        return out
+
+    tw._cuda_blend.launch = recorded
+    try:
+        InferenceEngine("rife", r5_sd, compute_dtype=torch.bfloat16, fast=2).interpolate(a, b)
+    finally:
+        tw._cuda_blend.launch = launch
+    torch.cuda.synchronize()
+    (x, need_pair, got), = seen
+    assert not need_pair and got.dtype == torch.bfloat16
+    blend, w0, w1 = tw.warp2_blend_planes_ref(*x, True)
+    terms = torch.maximum(w0.float().abs(), w1.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(terms.clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.float() - blend.float()).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tta_is_the_mean_of_the_two_flipped_forwards(r5_sd, dtype):
+    """Bit for bit, with cuDNN held to its deterministic algorithms: with
+    the default ones two f32 runs of one forward can differ by ~5e-6 on
+    the card (split sums in another order)."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    eng = InferenceEngine("rife", r5_sd, compute_dtype=dtype, fast=1)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = eng.interpolate(a, b, tta=True)
+        one = eng.interpolate(a, b)
+        flipped = eng.interpolate(np.ascontiguousarray(a[:, ::-1, ::-1]),
+                                  np.ascontiguousarray(b[:, ::-1, ::-1]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, (one + torch.flip(flipped, (1, 2))) / 2, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ssim_matlab", "ssim", "msssim"])
+def test_ssim_on_the_card_matches_the_cpu(name):
+    from rife_tpu_torch.ops import ssim as ss
+
+    _need_card()
+    rng = np.random.default_rng(5)
+    x = rng.random((2, 96, 128, 3), dtype=np.float32)
+    y = np.clip(x + rng.normal(0, 0.05, x.shape), 0, 1).astype(np.float32)
+    fn = getattr(ss, name)
+    want = float(fn(torch.from_numpy(x), torch.from_numpy(y)))
+    got = float(fn(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
+    assert abs(got - want) <= 1e-6, (got, want)
+
+
+@pytest.mark.gpu
+def test_scale_two_engine_at_full_width_runs():
+    """scale=2 (scale list (2, 1, 0.5): the last level works at 1472x2560)
+    on a 736x1280 pair: finite frames in [0, 1], 6 K1 + 1 K2."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    a = rng.random((1, 736, 1280, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    eng = InferenceEngine("rife", seed=0, compute_dtype=torch.bfloat16, fast=1, scale=2.0)
+    assert eng.scale_list == (2.0, 1.0, 0.5)
+    before, before2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+    out = eng.interpolate(a, b)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 736, 1280, 3) and bool(torch.isfinite(out).all())
+    assert 0 <= float(out.min()) and float(out.max()) <= 1
+    assert (tw.warp_planes.launches - before, tw.warp2_blend_planes.launches - before2) == (6, 1)

@@ -175,14 +175,6 @@ def test_ifnet_r5_weights_match_reference(monkeypatch, fast):
     _compare(monkeypatch, _r5(), (240, 150, 90), fast, (4.0, 2.0, 1.0), 64, 96)
 
 
-def test_unported_branches_raise():
-    # (The teacher branch, `gt=`, is ported: test_teacher_branch_matches_reference.)
-    net = IFNet(IFNetConfig(block_channels=(8, 8, 8)))
-    x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(x, x, scale_list=(3.0, 2.0, 1.0))
-
-
 @pytest.mark.parametrize("fast", [False, True])
 def test_teacher_branch_matches_reference(monkeypatch, fast):
     """ifnet_apply(..., gt=) with the r5 weights at 64x96, f32: the
