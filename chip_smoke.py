@@ -139,7 +139,26 @@ Phases, each timed against its own budget:
    exact, fast2 and fast3 within 0.02 dB PSNR and 1e-4 SSIM of the
    committed CPU rows (rife_tpu_torch/tools/eval_r5_cpu.json), every row
    printed beside them and beside the TPU's train_log_r5/eval_protocol.json,
-   the launches counted over the whole phase (54 K1 + 9 K2 a triplet).
+   the launches counted over the whole phase (54 K1 + 9 K2 a triplet);
+13. video: the image and video paths users run.  The native frame ops
+   (built with g++) against their numpy versions on a 720p frame; the
+   streaming pipeline (`interpolate_video`, an in-memory reader and
+   writer) with `rife` (r5, bf16, rung 1) on 25 720x1280 u8 frames panned
+   2 px a frame, padded to 736x1280, with one exact duplicate and the
+   last frame inverted: at 2X (batches of 4 pairs) the exact frame counts,
+   1 static pair and 1 scene cut, every batched midpoint equal to a
+   direct engine call on the same stacked pairs and to the frame written
+   (cuDNN deterministic), 6 K1 + 1 K2 a forward; again with cuDNN's
+   defaults, timed: frames out per second beside the engine alone (CUDA
+   events at batch 4 and 1) and the host seconds of upload, probe and the
+   writer's fetch; at 4X (the midpoint tree, batch 1); v4.25 (in-repo
+   weights, 768x1280) at 4X by timestep on 9 frames (t = 1/4, 2/4, 3/4, 4
+   K1 + 1 K2 a forward); r5 exported to a reference .pkl and loaded back
+   (the engine's output equal to the .rtpu engine's), `convert` .rtpu ->
+   .pkl -> .rtpu (equal tensors); where cv2 is installed (decided up
+   front, logged either way), `interp_img --exp 2` on two 720p PNGs,
+   `interp_video --img DIR --png` on 5 frames and `DiskInterpolator` from
+   3 to 9 frames, through files under build/.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -151,6 +170,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -169,7 +189,7 @@ TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
             "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90,
-            "probes": 60, "ladder": 150, "protocol": 90}
+            "probes": 60, "ladder": 150, "protocol": 90, "video": 150}
 # Phase 10 compares r3_exp2.py's chaotic bodies over this many steps of 32
 # bodies (the whole run, 40000, takes the plain version minutes; the tool
 # compares it).
@@ -277,6 +297,14 @@ LADDER_WARPS = [
     ("scale 0.5 (768x1280): context level 2", 64, 96, 160),
     ("scale 0.5 (768x1280): context level 3", 128, 48, 80),
 ]
+# Phase 13, the video path: a clip of VIDEO_FRAMES 720p u8 frames panned
+# VIDEO_PAN px a frame (probe SSIM of a pair ~0.65, far from the 0.996 and
+# 0.2 gates), at 2X in batches of VIDEO_BATCH pairs and at 4X; v4.25 at 4X
+# by timestep on V425_VIDEO_FRAMES frames; the CLIs through files on
+# VIDEO_IO_FRAMES of them (where cv2 is installed); the engine alone timed
+# over VIDEO_EVENT_REQUESTS forwards.
+VIDEO_FRAMES, VIDEO_PAN, VIDEO_BATCH = 25, 2, 4
+V425_VIDEO_FRAMES, VIDEO_IO_FRAMES, VIDEO_EVENT_REQUESTS = 9, 5, 20
 # Phase 12: the card's f32 protocol rows against the committed CPU rows.
 PROTOCOL_GATED = ("exact-f32", "fast2-f32", "fast3-f32")
 PROTOCOL_TOL = {"psnr": 0.02, "ssim": 1e-4}
@@ -1737,6 +1765,348 @@ def protocol_path(dev, warp_mod):
     return {"rows": rows, "launches": counts, "triplets": n}
 
 
+class ListReader:
+    """An in-memory video: frames, fps and size, as the readers give them."""
+
+    def __init__(self, frames, fps=25.0):
+        self.frames, self.fps = frames, fps
+        self.height, self.width = frames[0].shape[:2]
+        self.frame_count = len(frames)
+
+    def __iter__(self):
+        return iter(self.frames)
+
+
+class ListWriter:
+    def __init__(self):
+        self.frames = []
+
+    def write(self, f):
+        self.frames.append(f)
+
+    def close(self):
+        pass
+
+
+class RecordingEngine:
+    """An engine whose `interpolate` calls are kept (inputs, timestep and
+    output) and whose host seconds in them are summed: the time the main
+    thread spends queuing forwards (the pipeline reads the rest through
+    to the engine)."""
+
+    def __init__(self, eng):
+        self.eng, self.calls, self.host_s = eng, [], 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.eng, name)
+
+    def interpolate(self, a, b, t=0.5, tta=False):
+        t0 = time.perf_counter()
+        out = self.eng.interpolate(a, b, t, tta)
+        self.host_s += time.perf_counter() - t0
+        self.calls.append((a, b, t, out))
+        return out
+
+
+def video_clip(n, h, w, pan, seed=7):
+    """`n` u8 frames of smooth content (smooth_pair's recipe) panned `pan`
+    px a frame to the left, HWC RGB."""
+    rng = np.random.default_rng(seed)
+    m = 128
+    base = rng.random((h + 2 * m, w + 2 * m + n * pan, 3)).astype(np.float32)
+    for _ in range(3):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
+                + np.roll(base, 2, 0) + np.roll(base, 2, 1)) / 5
+    u8 = (np.clip(base, 0, 1) * 255 + 0.5).astype(np.uint8)
+    return [np.ascontiguousarray(u8[m:m + h, m + i * pan:m + i * pan + w]) for i in range(n)]
+
+
+def gated_clip():
+    """VIDEO_FRAMES frames: the panned clip with an exact duplicate after
+    its middle frame and its last frame inverted (1 static pair, 1 scene
+    cut, every other pair's probe SSIM far from both gates)."""
+    clip = video_clip(VIDEO_FRAMES - 1, FRAME_H, FRAME_W, VIDEO_PAN)
+    mid = len(clip) // 2
+    clip = clip[:mid + 1] + [clip[mid].copy()] + clip[mid + 1:]
+    clip[-1] = 255 - clip[-1]
+    return clip
+
+
+def native_checks() -> dict:
+    """Phase 13, step 1: the frame-ops binding built with g++ on this
+    machine against its numpy versions on a 720p frame."""
+    from rife_tpu_torch import native
+
+    if not native.have_native():
+        raise AssertionError("the native frame ops did not build (no g++?)")
+    rng = np.random.default_rng(9)
+    u8 = rng.integers(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    ph = -(-FRAME_H // 32) * 32
+    got, want = native.u8_to_f32_pad(u8, ph, FRAME_W), native.u8_to_f32_pad_ref(u8, ph, FRAME_W)
+    ulps = int((np.abs(got - want) / np.spacing(np.maximum(np.abs(want), 1e-30))).max())
+    f32 = (rng.standard_normal((ph, FRAME_W, 3)) * 0.6 + 0.5).astype(np.float32)
+    crop_equal = bool(np.array_equal(native.f32_to_u8_crop(f32, FRAME_H, FRAME_W),
+                                     native.f32_to_u8_crop_ref(f32, FRAME_H, FRAME_W)))
+    y = rng.integers(0, 256, (FRAME_H, FRAME_W), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (FRAME_H // 2, FRAME_W // 2), dtype=np.uint8)
+            for _ in range(2))
+    yuv_equal = bool(np.array_equal(native.yuv420_to_rgb(y, u, v),
+                                    native.yuv420_to_rgb_ref(y, u, v)))
+    log(f"  native frame ops (g++): u8_to_f32_pad within {ulps} ulp of numpy (<= 1), "
+        f"f32_to_u8_crop equal {crop_equal}, yuv420_to_rgb equal {yuv_equal}")
+    if ulps > 1 or not crop_equal or not yuv_equal:
+        raise AssertionError("the native frame ops disagree with their numpy versions")
+    return {"have_native": True, "u8_to_f32_pad_max_ulp": ulps,
+            "f32_to_u8_crop_equal": crop_equal, "yuv420_to_rgb_equal": yuv_equal}
+
+
+def run_video(eng, frames, warp_mod, label, forwards, k1, k2, expect, **job):
+    """One interpolate_video run through the in-memory reader and writer,
+    the launches counted from 0: (stats, written frames, recorded calls)."""
+    from rife_tpu_torch.video import VideoJob, interpolate_video
+
+    rec, writer = RecordingEngine(eng), ListWriter()
+    reset_counts(warp_mod)
+    stats = interpolate_video(rec, ListReader(frames), writer, VideoJob(**job))
+    torch.cuda.synchronize()
+    counts = read_counts(warp_mod)
+    got = tuple(stats[k] for k in ("frames_in", "frames_out", "static", "scene_cut"))
+    stats["dispatch_s"] = rec.host_s
+    log(f"  {label}: {len(rec.calls)} forwards, stats {stats}; launches {counts}")
+    if got != expect:
+        raise AssertionError(f"{label}: (in, out, static, cut) {got}, expected {expect}")
+    if len(rec.calls) != forwards or len(writer.frames) != stats["frames_out"]:
+        raise AssertionError(f"{label}: {len(rec.calls)} forwards, expected {forwards}")
+    check_counts(counts, forwards, k1, k2, label)
+    return stats, writer.frames, rec.calls, counts
+
+
+def video_path(dev, warp_mod) -> dict:
+    """Phase 13: the frame ops, the streaming pipeline at 2X and 4X, the
+    checkpoints' .pkl route and the CLIs (see the module docstring)."""
+    from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+    from rife_tpu_torch.ops.pad import plan_pad_to_multiple
+    from rife_tpu_torch.video import pipeline as pl
+
+    rec = {"native": native_checks()}
+    t0 = time.perf_counter()
+    clip = gated_clip()
+    log(f"  a clip of {len(clip)} {FRAME_H}x{FRAME_W} u8 frames ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sd = state_dict_from_jax(load_checkpoint(CKPT)[1])
+    eng = InferenceEngine("rife", sd, compute_dtype=torch.bfloat16, fast=1, device=dev)
+    pad = plan_pad_to_multiple(FRAME_H, FRAME_W, eng.pad_multiple)
+    padded = (1, pad.padded_h, pad.padded_w, 3)
+    eng.warmup((VIDEO_BATCH,) + padded[1:])
+    eng.warmup(padded)
+    k1_last, k2 = final_launches(warp_mod)
+    k1 = LAUNCHES_PER_FORWARD + k1_last
+    n = len(clip)
+    gaps = n - 1  # one of them the scene cut, one the static pair's replacement
+    batches = -(-(gaps - 1) // VIDEO_BATCH)
+    expect2 = (n, 2 * n - 1, 1, 1)
+
+    # 2X, checked: cuDNN's deterministic algorithms, so a second call on the
+    # same inputs gives the same bits.
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        stats, frames, calls, counts = run_video(
+            eng, clip, warp_mod, "2X, batch 4 (checked)", batches + 1, k1, k2, expect2, exp=1)
+        shapes = [tuple(c[0].shape[:1]) for c in calls]
+        if sorted(shapes) != [(1,)] + [(VIDEO_BATCH,)] * batches:
+            raise AssertionError(f"2X: forwards of batch {shapes}")
+        batched = [c for c in calls if c[0].shape[0] == VIDEO_BATCH]
+        differ = sum(int((c[3] != eng.interpolate(c[0], c[1])).sum()) for c in batched)
+        mids = np.concatenate([pl.post(c[3], pad) for c in batched])[:gaps - 1]
+        written = np.stack(frames[1:2 * (gaps - 1):2])
+        wrong = int((mids != written).any(axis=(1, 2, 3)).sum())
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    log(f"  2X: every batched midpoint against a direct engine call on the same stacked "
+        f"pairs: {differ} elements differ (0); {wrong} of {len(written)} written "
+        f"midpoints differ from them (0)")
+    if differ or wrong:
+        raise AssertionError("2X: the pipeline's midpoints are not the engine's")
+    rec["2x_checked"] = {"stats": stats, "launches": counts, "forwards": len(calls),
+                         "batched_elements_differing": differ, "written_differing": wrong}
+
+    # 2X, timed (cuDNN's default algorithms), beside the engine alone.
+    stats, _, calls, counts = run_video(eng, clip, warp_mod, "2X, batch 4 (timed)",
+                                        batches + 1, k1, k2, expect2, exp=1)
+    a4 = torch.zeros((VIDEO_BATCH,) + padded[1:], dtype=torch.bfloat16, device=dev)
+    eng_ms = events_ms(eng, a4, a4, VIDEO_EVENT_REQUESTS)
+    eng1_ms = events_ms(eng, a4[:1], a4[:1], VIDEO_EVENT_REQUESTS)
+    device_s = (batches * eng_ms + eng1_ms) / 1e3
+    rec["2x"] = {
+        "stats": stats, "launches": counts, "forwards": len(calls),
+        "engine_ms_batch4": eng_ms, "engine_ms_batch1": eng1_ms,
+        "engine_alone_mids_per_s": VIDEO_BATCH * 1e3 / eng_ms,
+        "engine_alone_fps_out": 2 * VIDEO_BATCH * 1e3 / eng_ms,
+        "clip_forwards_device_s": device_s,
+        "fps_out_if_device_bound": stats["frames_out"] / device_s}
+    log(f"  2X: pipeline {stats['fps_out']:.2f} frames out/s over {stats['seconds']:.3f} s "
+        f"(host: upload {stats['upload_s']:.3f} s, probe {stats['probe_s']:.3f} s, queuing "
+        f"the forwards {stats['dispatch_s']:.3f} s, the writer's fetch "
+        f"{stats['fetch_s']:.3f} s); the engine alone (CUDA events): "
+        f"{eng_ms:.2f} ms a batch-4 forward, {eng1_ms:.2f} ms batch 1, so "
+        f"{rec['2x']['engine_alone_fps_out']:.1f} frames out/s at 2X, "
+        f"{rec['2x']['fps_out_if_device_bound']:.1f} for this clip's forwards")
+
+    # 4X: the midpoint tree at batch 1 (3 forwards a gap, 1 for the static pair).
+    stats, _, calls, counts = run_video(eng, clip, warp_mod, "4X, midpoint tree",
+                                        3 * (gaps - 1) + 1, k1, k2,
+                                        (n, n + 3 * gaps, 1, 1), exp=2)
+    rec["4x"] = {"stats": stats, "launches": counts, "forwards": len(calls)}
+    del eng
+
+    # 4X by timestep with v4.25 (768x1280): t = 1/4, 2/4, 3/4 a gap.
+    name, tree = load_checkpoint(CKPT_V425)
+    eng = InferenceEngine("v4.25", state_dict_from_jax(tree), compute_dtype=torch.bfloat16,
+                          fast=1, device=dev)
+    short = video_clip(V425_VIDEO_FRAMES, FRAME_H, FRAME_W, VIDEO_PAN, seed=8)
+    g = len(short) - 1
+    p64 = plan_pad_to_multiple(FRAME_H, FRAME_W, eng.pad_multiple)
+    eng.warmup((1, p64.padded_h, p64.padded_w, 3))
+    stats, frames, calls, counts = run_video(
+        eng, short, warp_mod, "v4.25 4X by timestep", 3 * g, 4 + k1_last, k2,
+        (len(short), len(short) + 3 * g, 0, 0), exp=2, use_timestep=True)
+    ts = [float(c[2]) for c in calls]
+    if ts != [0.25, 0.5, 0.75] * g or \
+            tuple(calls[0][0].shape) != (1, p64.padded_h, p64.padded_w, 3):
+        raise AssertionError(f"v4.25: timesteps {ts[:6]}..., input {tuple(calls[0][0].shape)}")
+    if not all(f.shape == (FRAME_H, FRAME_W, 3) for f in frames):
+        raise AssertionError("v4.25: written frames of another size")
+    rec["v425_4x"] = {"stats": stats, "launches": counts, "forwards": len(calls),
+                      "input": list(calls[0][0].shape)}
+    del eng, calls
+    torch.cuda.empty_cache()
+    rec["checkpoints"] = checkpoint_checks(dev, sd)
+    rec["file_io"] = file_io_checks(dev, warp_mod, clip)
+    return rec
+
+
+def checkpoint_checks(dev, sd) -> dict:
+    """Phase 13, step 5: r5 exported to a reference .pkl, loaded back into
+    an engine whose output equals the .rtpu engine's; convert .rtpu ->
+    .pkl -> .rtpu with equal tensors."""
+    from rife_tpu_torch.cli import convert
+    from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+    from rife_tpu_torch.models.torch_export import export_ifnet, save_torch_pickle
+    from rife_tpu_torch.ops import pad_to_multiple
+
+    work = os.path.join(ROOT, "build", "chip_smoke_video")
+    os.makedirs(work, exist_ok=True)
+    name, tree = load_checkpoint(CKPT)
+    pkl = os.path.join(work, "flownet.pkl")
+    save_torch_pickle(pkl, export_ifnet(tree))
+    pname, ptree = load_checkpoint(pkl)
+    a, b = (pad_to_multiple(torch.from_numpy(x), 32)[0]
+            for x in smooth_pair(BATCH, FRAME_H, FRAME_W, PAN))
+    outs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for params in (sd, state_dict_from_jax(ptree, model=pname)):
+            eng = InferenceEngine(pname, params, compute_dtype=torch.bfloat16, fast=1,
+                                  device=dev)
+            outs.append(eng.interpolate(a, b))
+            del eng
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    differ = int((outs[0] != outs[1]).sum())
+    back = os.path.join(work, "back.rtpu")
+    convert.main(["--input", CKPT, "--output", os.path.join(work, "r5.pkl"), "--to", "torch"])
+    convert.main(["--input", os.path.join(work, "r5.pkl"), "--output", back])
+    bname, btree = load_checkpoint(back)
+    want, got = state_dict_from_jax(tree), state_dict_from_jax(btree)
+    unequal = [k for k in want if k not in got or not torch.equal(want[k], got[k])]
+    unequal += sorted(set(got) - set(want))
+    log(f"  checkpoints: r5 -> .pkl -> {pname!r} engine vs the .rtpu engine, one request: "
+        f"{differ} elements differ (0); convert .rtpu -> .pkl -> .rtpu: {len(got)} tensors, "
+        f"{len(unequal)} unequal (0), model {bname!r}")
+    shutil.rmtree(work)
+    if pname != "rife" or bname != "rife" or differ or unequal:
+        raise AssertionError("the .pkl route does not give back the r5 weights")
+    return {"pkl_engine_elements_differing": differ, "convert_tensors": len(got),
+            "convert_unequal": unequal}
+
+
+def file_io_checks(dev, warp_mod, clip) -> dict:
+    """Phase 13, step 6: the CLIs and the disk interpolator through real
+    files, where the host has cv2 (decided up front, not by an error)."""
+    import importlib.util
+
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    have_ffmpeg = shutil.which("ffmpeg") is not None
+    log(f"  cv2 {'found' if have_cv2 else 'not found'}, ffmpeg "
+        f"{'found' if have_ffmpeg else 'not found'} on the host")
+    rec = {"cv2": have_cv2, "ffmpeg": have_ffmpeg}
+    if not have_cv2:
+        log("  file IO (interp_img, interp_video --png, DiskInterpolator) skipped: no cv2")
+        return rec
+    import cv2
+
+    from rife_tpu_torch.cli import interp_img, interp_video
+    from rife_tpu_torch.engine import DiskInterpolator
+
+    work = os.path.join(ROOT, "build", "chip_smoke_video")
+    frames_dir, out_dir = os.path.join(work, "frames"), os.path.join(work, "out")
+    os.makedirs(frames_dir, exist_ok=True)
+    for i, f in enumerate(clip[:VIDEO_IO_FRAMES]):
+        cv2.imwrite(os.path.join(frames_dir, f"{i:04d}.png"), f[..., ::-1])
+    model_dir = os.path.dirname(CKPT)
+    t0 = time.perf_counter()
+    reset_counts(warp_mod)
+    interp_img.main(["--img", os.path.join(frames_dir, "0000.png"),
+                     os.path.join(frames_dir, "0001.png"), "--exp", "2", "--modelDir",
+                     model_dir, "--output", os.path.join(out_dir, "img")])
+    names = sorted(os.listdir(os.path.join(out_dir, "img")))
+    shapes = {cv2.imread(os.path.join(out_dir, "img", f)).shape for f in names}
+    counts = read_counts(warp_mod)
+    log(f"  interp_img --exp 2 (f32, 720p): {names} {shapes} in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    if names != [f"img{i}.png" for i in range(5)] or shapes != {(FRAME_H, FRAME_W, 3)}:
+        raise AssertionError("interp_img wrote other frames")
+    k1_last, k2 = final_launches(warp_mod)
+    check_counts(counts, 3, LAUNCHES_PER_FORWARD + k1_last, k2, "interp_img (rung 0)")
+    rec["interp_img"] = {"frames": len(names), "launches": counts}
+
+    t0 = time.perf_counter()
+    reset_counts(warp_mod)
+    interp_video.main(["--img", frames_dir, "--png", "--output", os.path.join(out_dir, "vid"),
+                       "--modelDir", model_dir])
+    n = len(os.listdir(os.path.join(out_dir, "vid")))
+    counts = read_counts(warp_mod)
+    log(f"  interp_video --img ({VIDEO_IO_FRAMES} frames) --png: {n} frames in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    if n != 2 * VIDEO_IO_FRAMES - 1:
+        raise AssertionError(f"interp_video wrote {n} frames")
+    check_counts(counts, -(-(VIDEO_IO_FRAMES - 1) // VIDEO_BATCH),
+                 LAUNCHES_PER_FORWARD + k1_last, k2, "interp_video (bf16, rung 1)")
+    rec["interp_video"] = {"frames": n, "launches": counts}
+
+    t0 = time.perf_counter()
+    from rife_tpu_torch.native import u8_to_f32
+    from rife_tpu_torch.engine import build_engine
+
+    eng = build_engine(CKPT, None, device=dev)
+    ph = -(-FRAME_H // eng.pad_multiple) * eng.pad_multiple
+    three = [u8_to_f32(np.pad(f, ((0, ph - FRAME_H), (0, 0), (0, 0)))) for f in clip[:3]]
+    di = DiskInterpolator(eng, os.path.join(work, "disk"))
+    reset_counts(warp_mod)
+    out = di.interpolate(three, 9)
+    counts = read_counts(warp_mod)
+    log(f"  DiskInterpolator (f32, rung 0) 3 -> {len(out)} frames ({out[0].shape}) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    if len(out) != 9 or out[0].shape != (ph, FRAME_W, 3):
+        raise AssertionError("DiskInterpolator gave other frames")
+    check_counts(counts, 2 + 4, LAUNCHES_PER_FORWARD + k1_last, k2, "DiskInterpolator")
+    rec["disk_interpolator"] = {"frames": len(out), "launches": counts}
+    shutil.rmtree(work)
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     signal.alarm(HARD_STOP_S)  # SIGALRM ends the run if anything hangs
@@ -1814,6 +2184,14 @@ def main() -> int:
     with Phase("protocol"):
         protocol = protocol_path(dev, warp_mod)
 
+    with Phase("video"):
+        video = video_path(dev, warp_mod)
+    video_runs = {f"video {k}": video[k]["launches"]
+                  for k in ("2x_checked", "2x", "4x", "v425_4x")}
+    video_runs.update({f"video {k}": video["file_io"][k]["launches"]
+                       for k in ("interp_img", "interp_video", "disk_interpolator")
+                       if k in video["file_io"]})
+
     per_fwd = lambda recs, key, n="launches_per_forward": sum(  # noqa: E731
         r[key] * r[n] for r in recs)
     per_step = lambda key: sum(r[key] * r["launches_per_step"]  # noqa: E731
@@ -1827,7 +2205,8 @@ def main() -> int:
                          **{f"serve {p}": legacy[p]["launches"][k] for p in legacy},
                          **{f"serve {c[0]}": ladder[c[0]]["launches"][k]
                             for c in LADDER_CONFIGS},
-                         "protocol": protocol["launches"][k]}
+                         "protocol": protocol["launches"][k],
+                         **{p: c[k] for p, c in video_runs.items()}}
 
     def nhwc_row(kernel, replaces, **extra):
         recs = [r for r in nhwc_records if r["kernel"] == kernel]
@@ -1867,7 +2246,7 @@ def main() -> int:
                            "k2_per_forward", "k2_form")}
                    for c in LADDER_CONFIGS},
         "per_launch_ladder": ladder_records, "ladder_path": ladder,
-        "protocol_path": protocol, "card": smi}, {
+        "protocol_path": protocol, "video_path": video, "card": smi}, {
         "name": "warp_planes_bwd", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_planes_bwd.cu",
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",

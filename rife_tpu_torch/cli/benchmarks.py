@@ -21,30 +21,20 @@ import os
 import numpy as np
 import torch
 
-from rife_tpu_torch.engine import InferenceEngine, load_checkpoint, state_dict_from_jax
+from rife_tpu_torch.engine import DTYPES, InferenceEngine, build_engine, find_checkpoint
 from rife_tpu_torch.ops import ssim_matlab
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NOT_PORTED = ("ucf101", "middlebury", "hd", "hd4x", "atd12k", "testtime")
 
 
 def _engine(args) -> InferenceEngine:
-    """The engine of `--modelDir` (an `.rtpu` file or a directory holding
-    `flownet.rtpu`; the model from the checkpoint's meta unless `--model`
-    names one), or seeded initial weights of `--model` (default `rife`)
-    when there is no such file, as the reference's `_engine`.  (A
-    `flownet.pkl` is not read: ROADMAP.md, queue A item 3.)"""
-    ckpt = args.modelDir
-    if os.path.isdir(ckpt):
-        ckpt = os.path.join(ckpt, "flownet.rtpu")
-    if os.path.isfile(ckpt):
-        name, tree = load_checkpoint(ckpt)
-        model = args.model or name
-        params = state_dict_from_jax(tree, model=model)
-    else:
-        model, params = args.model or "rife", None
-    return InferenceEngine(model, params, compute_dtype=_DTYPES[args.dtype],
-                           scale=args.scale, fast=args.fast, device=args.device)
+    """The engine of `--modelDir` (a checkpoint file, or a directory
+    holding `flownet.rtpu` or `flownet.pkl`; the model from the checkpoint
+    unless `--model` names one), or seeded initial weights of `--model`
+    (default `rife`) when there is no such file, as the reference's
+    `_engine`."""
+    return build_engine(find_checkpoint(args.modelDir), args.model, args.scale,
+                        args.dtype, fast=args.fast, device=args.device)
 
 
 def _ssim_rounded(gt01: np.ndarray, pred01: np.ndarray, device=None) -> float:
@@ -104,7 +94,7 @@ def main(argv=None):
     p.add_argument("--model", type=str, default=None)
     p.add_argument("--modelDir", type=str, default="train_log")
     p.add_argument("--scale", type=float, default=1.0)
-    p.add_argument("--dtype", type=str, default="float32", choices=sorted(_DTYPES))
+    p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES))
     p.add_argument("--fast", type=int, nargs="?", const=1, default=0,
                    help="measure the fast serving graph at this rung (benchmarks "
                         "default to the exact graph for protocol parity)")

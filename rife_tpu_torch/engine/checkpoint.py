@@ -15,12 +15,14 @@ int32 count); "step" is int64.
 tree) into this package's module names and PyTorch's weight layouts;
 `jax_tree_from_state_dict` carries it back.
 
-`load_checkpoint` also reads the legacy models' three-file checkpoints (a
-directory holding the reference's `flownet.pkl`, `contextnet.pkl` and
-`unet.pkl`, rife_tpu/engine/checkpoint.py:105-117) into the reference's
-parameter tree, with its importers `import_hdv2` and `import_hd` (copies
-of rife_tpu/models/torch_import.py's): eval-mode BatchNorm folded into
-`hd`'s bias-free convs.
+`load_checkpoint` also reads the reference's own PyTorch checkpoints into
+the reference's parameter tree, with numpy copies of the importers of
+rife_tpu/models/torch_import.py: a single `flownet.pkl` of the paper
+family or of v4.25 (`import_ifnet`, `import_v425`; rife_tpu/engine/
+checkpoint.py:128-135), and the legacy models' three-file checkpoints (a
+directory holding `flownet.pkl`, `contextnet.pkl` and `unet.pkl`,
+rife_tpu/engine/checkpoint.py:105-117; `import_hdv2`, and `import_hd`
+with eval-mode BatchNorm folded into its bias-free convs).
 """
 from __future__ import annotations
 
@@ -92,21 +94,55 @@ def load_params(path: str, prefix: str = ""):
     return _unflatten(flat), header["meta"]
 
 
-def load_checkpoint(path: str):
+def load_checkpoint(path: str, model: str | None = None):
     """-> (model name, parameter tree of numpy arrays).  `path` is an
     `.rtpu` file (the optimizer state of a training checkpoint is
-    dropped), or a directory holding a legacy trio, whose model (`hd` or
-    `hdv2`) is detected from its keys."""
+    dropped; the model from its meta), a reference `flownet.pkl` (the
+    model detected from its keys), or a directory holding a legacy trio
+    (`hd` or `hdv2`, detected).  `model` overrides the meta or the
+    detection of a file (`rife_2r`'s keys are `rife`'s)."""
     if os.path.isdir(path):
         return load_trio(path)
     with open(path, "rb") as f:
-        f.seek(8)
+        if f.read(8) != _MAGIC:
+            return load_pickle(path, model)
         (hlen,) = struct.unpack("<Q", f.read(8))
         keys = json.loads(f.read(hlen))["tensors"]
     full = any(k.startswith("opt_state/") for k in keys) and \
         any(k.startswith("params/") for k in keys)
     tree, meta = load_params(path, "params/" if full else "")
-    return meta.get("model", "rife"), tree["params"] if full else tree
+    return model or meta.get("model", "rife"), tree["params"] if full else tree
+
+
+def find_checkpoint(model_dir: str) -> str | None:
+    """`model_dir` itself, or its `flownet.rtpu`, then its `flownet.pkl`
+    (rife_tpu/cli/interp_img.py:59-64); None where there is no such
+    file."""
+    ckpt = model_dir
+    if os.path.isdir(ckpt):
+        for cand in ("flownet.rtpu", "flownet.pkl"):
+            p = os.path.join(ckpt, cand)
+            if os.path.exists(p):
+                ckpt = p
+                break
+    return ckpt if os.path.isfile(ckpt) else None
+
+
+def load_pickle(path: str, model: str | None = None):
+    """A reference `flownet.pkl` (a state dict saved by `torch.save`) ->
+    (model name, parameter tree): read with `torch.load(weights_only=True)`,
+    "module." stripped, the model detected from its keys unless `model`
+    names it, then imported (`import_ifnet` for the paper family,
+    `import_v425`)."""
+    from rife_tpu_torch.models.registry import detect_model_from_state_dict
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = strip_ddp({k: v.numpy() for k, v in sd.items()})
+    name = model or detect_model_from_state_dict(sd)
+    if name in ("hd", "hdv2"):
+        raise ValueError(f"{path}: a single .pkl of {name!r}; the legacy models "
+                         f"load from a directory holding the trio")
+    return name, _IMPORTERS[name](sd)
 
 
 def load_trio(path: str):
@@ -121,15 +157,21 @@ def load_trio(path: str):
                           ("fusionnet", "unet.pkl")):
         part = torch.load(os.path.join(path, fname), map_location="cpu",
                           weights_only=True)
-        sd.update({f"{prefix}.{_strip_ddp(k)}": v.numpy() for k, v in part.items()})
+        sd.update({f"{prefix}.{k}": v.numpy() for k, v in strip_ddp(part).items()})
     name = detect_model_from_state_dict(sd)
-    if name not in _IMPORTERS:
+    if name not in ("hd", "hdv2"):
         raise ValueError(f"{path}: a trio of {name!r}, not of a legacy model")
     return name, _IMPORTERS[name](sd)
 
 
-def _strip_ddp(key: str) -> str:
-    return key[len("module."):] if key.startswith("module.") else key
+def strip_ddp(sd: dict) -> dict:
+    """The one rule for DDP prefixes, used by every loader: where any key
+    starts with "module.", the prefixed keys, stripped, and the others
+    dropped (rife_tpu/models/torch_import.py:43-44, as the reference's
+    `convert` keeps only "module." keys); any other dict unchanged."""
+    if any(k.startswith("module.") for k in sd):
+        return {k[len("module."):]: v for k, v in sd.items() if k.startswith("module.")}
+    return sd
 
 
 def _conv_w(t) -> np.ndarray:
@@ -154,6 +196,56 @@ def _conv_prelu(sd, prefix, weight=_conv_w) -> dict:
 def _conv2(sd, prefix) -> dict:
     return {"conv1": _conv_prelu(sd, f"{prefix}.conv1"),
             "conv2": _conv_prelu(sd, f"{prefix}.conv2")}
+
+
+def _ifblock(sd, prefix) -> dict:
+    return {"conv0": [_conv_prelu(sd, f"{prefix}.conv0.{j}") for j in range(2)],
+            "convblock": [_conv_prelu(sd, f"{prefix}.convblock.{k}") for k in range(8)],
+            "lastconv": {"w": _deconv_w(sd[f"{prefix}.lastconv.weight"]),
+                         "b": np.asarray(sd[f"{prefix}.lastconv.bias"])}}
+
+
+def import_ifnet(sd: dict) -> dict:
+    """A paper IFNet / IFNet_m / 2R state dict (model/IFNet*.py) -> the
+    reference's parameter tree (rife_tpu `import_ifnet`): the teacher and
+    the refine stage where the state dict has them."""
+    params = {f"block{i}": _ifblock(sd, f"block{i}") for i in range(3)}
+    if "block_tea.conv0.0.0.weight" in sd:
+        params["block_tea"] = _ifblock(sd, "block_tea")
+    if "contextnet.conv1.conv1.0.weight" in sd:
+        params["contextnet"] = {f"conv{n}": _conv2(sd, f"contextnet.conv{n}")
+                                for n in range(1, 5)}
+        unet = {f"down{n}": _conv2(sd, f"unet.down{n}") for n in range(4)}
+        unet.update({f"up{n}": _conv_prelu(sd, f"unet.up{n}", _deconv_w) for n in range(4)})
+        unet["conv"] = {"w": _conv_w(sd["unet.conv.weight"]),
+                        "b": np.asarray(sd["unet.conv.bias"])}
+        params["unet"] = unet
+    return params
+
+
+def _v425_block(sd, prefix) -> dict:
+    conv = lambda key, weight=_conv_w: {  # noqa: E731
+        "w": weight(sd[f"{key}.weight"]), "b": np.asarray(sd[f"{key}.bias"])}
+    return {"conv0": [conv(f"{prefix}.conv0.{j}.0") for j in range(2)],
+            "convblock": [{"conv": conv(f"{prefix}.convblock.{k}.conv"),
+                           "beta": np.asarray(sd[f"{prefix}.convblock.{k}.beta"]).reshape(-1)}
+                          for k in range(8)],
+            "lastconv": conv(f"{prefix}.lastconv.0", _deconv_w)}
+
+
+def import_v425(sd: dict) -> dict:
+    """A v4.25 / HDv3 state dict (train_log/IFNet_HDv3.py) -> the
+    reference's parameter tree (rife_tpu `import_v425`); the teacher and
+    caltime keys are ignored, as the reference's loader does."""
+    from rife_tpu_torch.models.v425 import V425Config
+
+    params = {f"block{i}": _v425_block(sd, f"block{i}")
+              for i in range(len(V425Config().block_channels))}
+    params["encode"] = {
+        name: {"w": (_deconv_w if name == "cnn3" else _conv_w)(sd[f"encode.{name}.weight"]),
+               "b": np.asarray(sd[f"encode.{name}.bias"])}
+        for name in ("cnn0", "cnn1", "cnn2", "cnn3")}
+    return params
 
 
 def import_hdv2(sd: dict) -> dict:
@@ -239,7 +331,8 @@ def import_hd(sd: dict) -> dict:
     return params
 
 
-_IMPORTERS = {"hd": import_hd, "hdv2": import_hdv2}
+_IMPORTERS = {"rife": import_ifnet, "rife_m": import_ifnet, "rife_2r": import_ifnet,
+              "v4.25": import_v425, "hd": import_hd, "hdv2": import_hdv2}
 
 
 def _flatten(tree, prefix="", sep="."):

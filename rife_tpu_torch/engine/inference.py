@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 
 import torch
 
+from rife_tpu_torch.engine.checkpoint import load_checkpoint, state_dict_from_jax
 from rife_tpu_torch.models.ifnet import IFNetConfig
 from rife_tpu_torch.models.legacy import HDConfig, HDv2Config
 from rife_tpu_torch.models.registry import ModelDef, get_model_def
@@ -182,3 +184,21 @@ class InferenceEngine:
         self.interpolate(z, z, 0.5, tta)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_engine(model_path: str | None, model: str | None, scale: float = 1.0,
+                 dtype: str = "float32", fast: bool | int = False,
+                 device=None) -> InferenceEngine:
+    """The engine of a checkpoint (`.rtpu`, a reference `.pkl` or a trio
+    directory; `model` overrides its detected model), or of `model`'s
+    seeded initial weights (default `rife`) where there is no such path."""
+    if model_path and os.path.exists(model_path):
+        name, tree = load_checkpoint(model_path, model)
+        params = state_dict_from_jax(tree, model=name)
+    else:
+        name, params = (model or "rife"), None
+    return InferenceEngine(name, params, compute_dtype=DTYPES[dtype], scale=scale,
+                           fast=fast, device=device)

@@ -98,16 +98,22 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     return (ret, cs) if full else ret
 
 
-def ssim_matlab(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-                val_range=None, full: bool = False):
-    """Volumetric ("MATLAB") SSIM on NHWC images: the channels become a
-    depth axis and the separable blur runs over (depth, H, W)."""
+def ssim_matlab_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+                    val_range=None):
+    """`ssim_matlab`'s map over (N, depth, H, W), and its cs."""
     img1, img2 = _acc(img1), _acc(img2)
     _, h, w, _ = img1.shape
     real = min(window_size, h, w)
     L = _val_range(img1, val_range)
     v1, v2 = img1.movedim(-1, 1), img2.movedim(-1, 1)
-    ssim_map, cs = _ssim_core(v1, v2, lambda x: _blur(x, (1, 2, 3), real), L)
+    return _ssim_core(v1, v2, lambda x: _blur(x, (1, 2, 3), real), L)
+
+
+def ssim_matlab(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+                val_range=None, full: bool = False):
+    """Volumetric ("MATLAB") SSIM on NHWC images: the channels become a
+    depth axis and the separable blur runs over (depth, H, W)."""
+    ssim_map, cs = ssim_matlab_map(img1, img2, window_size, val_range)
     ret = torch.mean(ssim_map)
     return (ret, cs) if full else ret
 

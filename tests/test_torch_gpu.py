@@ -1221,3 +1221,130 @@ def test_scale_two_engine_at_full_width_runs():
     assert out.shape == (1, 736, 1280, 3) and bool(torch.isfinite(out).all())
     assert 0 <= float(out.min()) and float(out.max()) <= 1
     assert (tw.warp_planes.launches - before, tw.warp2_blend_planes.launches - before2) == (6, 1)
+
+
+def _video_clip(n=9, h=64, w=96, pan=2, seed=7):
+    """u8 frames of smooth content panned `pan` px a frame, an exact
+    duplicate after the middle one and the last inverted (1 static pair,
+    1 scene cut)."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((h + 32, w + 32 + n * pan, 3)).astype(np.float32)
+    for _ in range(3):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
+                + np.roll(base, 2, 0) + np.roll(base, 2, 1)) / 5
+    u8 = (np.clip(base, 0, 1) * 255 + 0.5).astype(np.uint8)
+    clip = [np.ascontiguousarray(u8[16:16 + h, 16 + i * pan:16 + i * pan + w])
+            for i in range(n - 1)]
+    mid = len(clip) // 2
+    clip = clip[:mid + 1] + [clip[mid].copy()] + clip[mid + 1:]
+    clip[-1] = 255 - clip[-1]
+    return clip
+
+
+class _Frames:
+    def __init__(self, frames):
+        self.frames, self.fps = frames, 25.0
+        self.height, self.width = frames[0].shape[:2]
+
+    def __iter__(self):
+        return iter(self.frames)
+
+
+class _Written(list):
+    def write(self, f):
+        self.append(f)
+
+    def close(self):
+        pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exp", [1, 2])
+def test_video_pipeline_on_the_card_matches_the_cpu_path(r5_sd, exp):
+    """interpolate_video through the kernels (6 K1 + 1 K2 a forward)
+    against the port's CPU path at 64x96 f32: stats equal, frames within
+    1 LSB and at least 99.9% equal."""
+    from rife_tpu_torch.video import VideoJob, interpolate_video
+
+    _need_card()
+    clip = _video_clip()
+    runs = {}
+    for where in ("cpu", None):
+        eng = InferenceEngine("rife", r5_sd, fast=1, device=where)
+        out = _Written()
+        before, before2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+        stats = interpolate_video(eng, _Frames(clip), out, VideoJob(exp=exp))
+        torch.cuda.synchronize()
+        runs[where] = (stats, out, tw.warp_planes.launches - before,
+                       tw.warp2_blend_planes.launches - before2)
+    (cstats, cframes, ck1, ck2), (stats, frames, k1, k2) = runs["cpu"], runs[None]
+    for k in ("frames_in", "frames_out", "static", "scene_cut"):
+        assert stats[k] == cstats[k], k
+    assert (stats["static"], stats["scene_cut"]) == (1, 1)
+    assert (ck1, ck2) == (0, 0)  # the CPU path launches nothing
+    forwards = 3 if exp == 1 else 3 * 7 + 1  # 2X: 7 gaps in batches of 4 + the static pair
+    assert (k1, k2) == (6 * forwards, forwards)
+    d = np.abs(np.stack(frames).astype(int) - np.stack(cframes).astype(int))
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999, (d.max(), (d == 0).mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_video_prep_and_post_on_the_card_are_the_cpus(dtype):
+    from rife_tpu_torch.ops.pad import plan_pad_to_multiple
+    from rife_tpu_torch.video import pipeline as pl
+
+    _need_card()
+    u8 = np.arange(256, dtype=np.uint8).reshape(16, 16, 1).repeat(3, -1)
+    pad = plan_pad_to_multiple(16, 16, 32)
+    on_card, on_cpu = pl.prep(u8, pad, dtype, "cuda"), pl.prep(u8, pad, dtype, "cpu")
+    assert on_card.is_cuda and on_card.dtype == dtype
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=0)
+    np.testing.assert_array_equal(pl.post(on_card, pad), pl.post(on_cpu, pad))
+    x = torch.rand((2, 40, 48, 3), generator=torch.Generator().manual_seed(1)) * 1.4 - 0.2
+    np.testing.assert_array_equal(pl.post(x.to("cuda", dtype), pad),
+                                  pl.post(x.to(dtype), pad))
+
+
+@pytest.mark.gpu
+def test_native_frame_ops_on_the_cards_machine():
+    """The card's machine has g++ (nvcc needs it): the binding builds and
+    agrees with its numpy versions."""
+    from rife_tpu_torch import native
+
+    _need_card()
+    assert native.have_native()
+    rng = np.random.default_rng(2)
+    u8 = rng.integers(0, 256, (72, 128, 3), dtype=np.uint8)
+    got, want = native.u8_to_f32_pad(u8, 96, 128), native.u8_to_f32_pad_ref(u8, 96, 128)
+    assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+    f = (rng.standard_normal((72, 128, 3)) * 0.6 + 0.5).astype(np.float32)
+    np.testing.assert_array_equal(native.f32_to_u8_crop(f, 64, 100),
+                                  native.f32_to_u8_crop_ref(f, 64, 100))
+    y = rng.integers(0, 256, (72, 128), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (36, 64), dtype=np.uint8) for _ in range(2))
+    np.testing.assert_array_equal(native.yuv420_to_rgb(y, u, v),
+                                  native.yuv420_to_rgb_ref(y, u, v))
+
+
+@pytest.mark.gpu
+def test_pkl_engine_equals_the_rtpu_engine_on_the_card(tmp_path):
+    from rife_tpu_torch.models.torch_export import export_ifnet, save_torch_pickle
+
+    _need_card()
+    name, tree = load_checkpoint(CKPT)
+    path = str(tmp_path / "flownet.pkl")
+    save_torch_pickle(path, export_ifnet(tree))
+    pname, ptree = load_checkpoint(path)
+    assert pname == "rife"
+    rng = np.random.default_rng(3)
+    a = rng.random((2, 128, 192, 3), np.float32)
+    b = np.roll(a, (3, 5), (1, 2))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = [InferenceEngine(pname, state_dict_from_jax(t), compute_dtype=torch.bfloat16,
+                                fast=1).interpolate(a, b) for t in (tree, ptree)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
