@@ -158,7 +158,34 @@ Phases, each timed against its own budget:
    .pkl -> .rtpu (equal tensors); where cv2 is installed (decided up
    front, logged either way), `interp_img --exp 2` on two 720p PNGs,
    `interp_video --img DIR --png` on 5 frames and `DiskInterpolator` from
-   3 to 9 frames, through files under build/.
+   3 to 9 frames, through files under build/;
+14. serve: the serving app (`rife_tpu_torch.serve`) over HTTP.
+   `load_engine` on train_log_r5 must give `rife`, bf16, rung 1 with the
+   checkpoint's tensors; its JSON API runs on a free port of 127.0.0.1 in a
+   thread, over a temporary upload and output directory: /health "ok"; a
+   720x1280 PNG pair (pan 32) at passes 4 gives 17 frames from 15 batch-1
+   forwards at 736x1280 (90 K1 + 15 K2 launches), frames handed to the
+   encoder equal to `exp_doubling` on the same engine (cuDNN
+   deterministic), disk-based equal to `DiskInterpolator`, two concurrent
+   requests equal to the sequential ones, then a timed request; a 9-frame
+   720p mp4v clip at 2X (17 frames read back), two 5-frame clips at 25
+   and 30 fps chained with 3 transition frames, a re-encode; every mp4 of
+   `_encode_frames` tagged BT.709; 403 for paths outside the directories,
+   401 without credentials where auth is set; no CUDA tensor reaches a
+   plain version; host seconds and frames out/s per request, the card's
+   memory (`MemoryMonitor`) before and after; then every K1/K2 launch
+   shape of the phase against its plain version, the batch-1 ones timed;
+15. benchmarks: the six protocol benchmarks through
+   `rife_tpu_torch.cli.benchmarks` on fixtures written at run time into a
+   temporary directory (a 5-frame 1080p and a 9-frame 720p .yuv clip made
+   by `YUV420Writer`; ucf101 2 x 256x256, the 12 Middlebury names at
+   388x584 / 480x640, atd12k 2 x 540x960): hd on r5 in f32 (2 forwards at
+   1088x1920), hd4x with seeded rife_m (6 at 768x1280), ucf101,
+   middlebury and atd12k on r5, testtime in bf16 (20 + 20 forwards at
+   480x640; its seconds/frame beside the same forward by CUDA events);
+   each printed JSON line finite with the reference's keys, 6 K1 + 1 K2
+   launches a forward; every launch shape against its plain version, hd's
+   and hd4x's timed.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, without that last line,
@@ -189,7 +216,8 @@ TOTAL_BUDGET_S = 600
 HARD_STOP_S = 1100
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "main path": 150,
             "v4.25": 150, "A/B": 90, "legacy": 200, "train": 300, "convchain": 90,
-            "probes": 60, "ladder": 150, "protocol": 90, "video": 150}
+            "probes": 60, "ladder": 150, "protocol": 90, "video": 150, "serve": 150,
+            "benchmarks": 150}
 # Phase 10 compares r3_exp2.py's chaotic bodies over this many steps of 32
 # bodies (the whole run, 40000, takes the plain version minutes; the tool
 # compares it).
@@ -305,6 +333,16 @@ LADDER_WARPS = [
 # over VIDEO_EVENT_REQUESTS forwards.
 VIDEO_FRAMES, VIDEO_PAN, VIDEO_BATCH = 25, 2, 4
 V425_VIDEO_FRAMES, VIDEO_IO_FRAMES, VIDEO_EVENT_REQUESTS = 9, 5, 20
+# Phase 14, the serving app: the pair at SERVE_PASSES passes (2^4 - 1 = 15
+# batch-1 forwards at 736x1280), a SERVE_CLIP_FRAMES-frame 720p clip at 2X,
+# two CHAIN_FRAMES-frame clips chained with 2^CHAIN_PASSES - 1 transition
+# frames; every request under a time limit.
+SERVE_PASSES, SERVE_CLIP_FRAMES, CHAIN_FRAMES, CHAIN_PASSES = 4, 9, 5, 2
+SERVE_REQUEST_TIMEOUT_S = 300
+# Phase 15, the protocol benchmarks: .yuv clips of HD_1080_FRAMES 1080p
+# frames (hd: 2 forwards at 1088x1920) and HD_720_FRAMES 720p frames (hd4x:
+# 6 forwards at 768x1280), testtime's warm-up and timed forwards.
+HD_1080_FRAMES, HD_720_FRAMES, TESTTIME_ITERS = 5, 9, 20
 # Phase 12: the card's f32 protocol rows against the committed CPU rows.
 PROTOCOL_GATED = ("exact-f32", "fast2-f32", "fast3-f32")
 PROTOCOL_TOL = {"psnr": 0.02, "ssim": 1e-4}
@@ -460,20 +498,24 @@ def dtypes_label(img, flow) -> str:
     return name(img) if img.dtype == flow.dtype else f"{name(img)} ({name(flow)} flow)"
 
 
-def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
+SHORT_DTYPE = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, dtype=torch.bfloat16,
+                    flow_dtype=None, **counts):
     """The warp kernel against its plain version at one launch shape of a
-    serving path (bf16 image and flow; signed, larger values for feature
-    channels), timed beside its bound, the plain version and F.grid_sample.
-    `counts` (launches per forward of a path) go into the record, with
-    K1's launch plan."""
+    serving path (a bf16 image and flow unless other dtypes are given;
+    signed, larger values for feature channels), timed beside its bound,
+    the plain version and F.grid_sample.  `counts` (launches per forward
+    of a path) go into the record, with K1's launch plan."""
     from rife_tpu_torch.ops.cuda import warp as cuda_warp
 
     amp = 8.0 * w / 1280
-    img = torch.rand(n, c, h, w, device=dev, generator=gen).to(torch.bfloat16)
+    img = torch.rand(n, c, h, w, device=dev, generator=gen).to(dtype)
     if c > 3:  # context or encoder features: signed, larger
-        img = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(torch.bfloat16)
-    flow = smooth_flow(n, h, w, amp, gen, dev, torch.bfloat16)
-    err = check_fwd(warp_mod, img, flow, f"{name} {tuple(img.shape)} bf16")
+        img = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(dtype)
+    flow = smooth_flow(n, h, w, amp, gen, dev, flow_dtype or dtype)
+    err = check_fwd(warp_mod, img, flow, f"{name} {tuple(img.shape)} {dtypes_label(img, flow)}")
     nbytes = 2 * img.numel() * img.element_size() + flow.numel() * flow.element_size()
     flops = 9 * img.numel()  # 6 multiplies, 3 adds per output element
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
@@ -490,7 +532,8 @@ def time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, **counts):
     log(f"  {name}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
         f"grid_sample(f32) {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.1f} us "
         f"({nbytes / 1e6:.1f} MB) -> {bound_s * 1e3 / ms:.1%} of the bound")
-    return {"launch": name, "img": [n, c, h, w], "dtype": "bf16", **counts,
+    return {"launch": name, "img": [n, c, h, w], "dtype": SHORT_DTYPE[img.dtype],
+            "flow_dtype": SHORT_DTYPE[flow.dtype], **counts,
             "plan": cuda_warp.k1_plan(img, flow, 0),
             "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_s * 1e3,
@@ -580,6 +623,69 @@ def blend_inputs(n, c, h, w, gen, dev, dtype, side_dtype, flow_kind="smooth"):
     return a, b, flow.contiguous(), mask
 
 
+def time_blend_launch(warp_mod, dev, gen, name, n, c, h, w, need_pair,
+                      dtype=torch.bfloat16, side_dtype=None, **counts):
+    """The fused kernel against its plain version at one launch shape (bf16
+    images, flow and mask unless other dtypes are given), timed beside its
+    bytes bound, the plain version, the composed route (a warp launch and
+    torch's blend), the library route (F.grid_sample over the pair in f32,
+    then torch.sigmoid and torch.lerp: three calls) and the other form at
+    the same shape.  Returns its record, with K2's launch plan."""
+    from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
+
+    side_dtype = side_dtype or dtype
+    a, b, flow, mask = blend_inputs(n, c, h, w, gen, dev, dtype, side_dtype)
+    err = check_blend(warp_mod, a, b, flow, mask, need_pair,
+                      f"{name} {tuple(a.shape)} {dtypes_label(a, flow)}")
+    esz = a.element_size()
+    nbytes = ((2 + (3 if need_pair else 1)) * a.numel() * esz
+              + flow.numel() * flow.element_size() + mask.numel() * mask.element_size())
+    # Per output element: two bilinear blends (9 flops each) and the
+    # mask blend (3); per pixel: two coordinates and the sigmoid (~30).
+    flops = 21 * a.numel() + 30 * n * h * w
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    copies = max(1, math.ceil(160e6 / nbytes))
+    inputs = [(a.clone(), b.clone(), flow.clone(), mask.clone(), need_pair)
+              for _ in range(copies)]
+    ms = device_ms(lambda *x: fused(warp_mod, *x), inputs)
+    # The other form at the same shape: how much of the difference
+    # between the two launches is the form.
+    other_ms = device_ms(lambda *x: fused(warp_mod, *x[:4], not need_pair), inputs)
+    plain_ms = device_ms(warp_mod.warp2_blend_planes_ref, inputs)
+    composed_ms = device_ms(lambda *x: warp_mod.warp2_blend_composed(*x[:4]), inputs)
+    lib_inputs = [(torch.cat([x[0], x[1]], 0).float(),
+                   grid_for(torch.cat([x[2][:, 0:2], x[2][:, 2:4]], 0)), x[3].float())
+                  for x in inputs]
+
+    def lib(pair, grid, m, n=n):
+        wp = F.grid_sample(pair, grid, mode="bilinear", padding_mode="border",
+                           align_corners=True)
+        return torch.lerp(wp[n:], wp[:n], torch.sigmoid(m))
+
+    lib_err = float((lib(*lib_inputs[0]) - warp_mod.warp2_blend_planes_ref(
+        a.float(), b.float(), flow, mask, False)).abs().max())
+    library_ms = device_ms(lib, lib_inputs)
+    log(f"  {name}: kernel {ms * 1e3:.1f} us (the "
+        f"{'blend-only' if need_pair else 'pair'} form {other_ms * 1e3:.1f} us), "
+        f"plain {plain_ms * 1e3:.1f} us, "
+        f"composed {composed_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, "
+        f"bound {bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
+        f"{bound_s * 1e3 / ms:.1%} of the bound")
+    return {
+        "launch": name, "img": [n, c, h, w], "dtype": SHORT_DTYPE[a.dtype],
+        "flow_dtype": SHORT_DTYPE[flow.dtype], "mask_dtype": SHORT_DTYPE[mask.dtype],
+        "emit_pair": need_pair, "launches_per_forward": 1, **counts,
+        "plan": cuda_blend.k2_plan(a, flow, mask, (0,) * (3 if need_pair else 1)),
+        "bytes": nbytes, "ms": ms, "other_form_ms": other_ms,
+        "share_of_bound": bound_s * 1e3 / ms,
+        "plain_ms": plain_ms, "composed_ms": composed_ms,
+        "library_ms": library_ms, "library": "F.grid_sample f32 + sigmoid + lerp",
+        "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+        else "operations",
+        "max_abs_err": err, "library_f32_max_abs_vs_plain": lib_err}
+
+
 def check_and_time_blend(warp_mod, dev):
     """Phase 3, the fused kernel: against its plain version at its two
     serving launches (bf16), in f32 and with the +-200 px block flow; at
@@ -588,65 +694,11 @@ def check_and_time_blend(warp_mod, dev):
     route's (F.grid_sample over the pair in f32, then torch.sigmoid and
     torch.lerp: three calls), and the other form's at the same shape.
     Returns the records (with K2's launch plan) and the largest error."""
-    from rife_tpu_torch.ops.cuda import warp_blend as cuda_blend
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    records, worst = [], 0.0
-    for name, c, h, w, need_pair in BLEND_LAUNCHES:
-        n = BATCH
-        a, b, flow, mask = blend_inputs(n, c, h, w, gen, dev, torch.bfloat16,
-                                        torch.bfloat16)
-        err = check_blend(warp_mod, a, b, flow, mask, need_pair,
-                          f"{name} {tuple(a.shape)} bf16")
-        worst = max(worst, err)
-        esz = a.element_size()
-        nbytes = ((2 + (3 if need_pair else 1)) * a.numel() * esz
-                  + flow.numel() * flow.element_size() + mask.numel() * mask.element_size())
-        # Per output element: two bilinear blends (9 flops each) and the
-        # mask blend (3); per pixel: two coordinates and the sigmoid (~30).
-        flops = 21 * a.numel() + 30 * n * h * w
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
-        copies = max(1, math.ceil(160e6 / nbytes))
-        inputs = [(a.clone(), b.clone(), flow.clone(), mask.clone(), need_pair)
-                  for _ in range(copies)]
-        ms = device_ms(lambda *x: fused(warp_mod, *x), inputs)
-        # The other form at the same shape: how much of the difference
-        # between the two launches is the form.
-        other_ms = device_ms(lambda *x: fused(warp_mod, *x[:4], not need_pair), inputs)
-        plain_ms = device_ms(warp_mod.warp2_blend_planes_ref, inputs)
-        composed_ms = device_ms(lambda *x: warp_mod.warp2_blend_composed(*x[:4]), inputs)
-        lib_inputs = [(torch.cat([x[0], x[1]], 0).float(),
-                       grid_for(torch.cat([x[2][:, 0:2], x[2][:, 2:4]], 0)), x[3].float())
-                      for x in inputs]
-
-        def lib(pair, grid, m, n=n):
-            wp = F.grid_sample(pair, grid, mode="bilinear", padding_mode="border",
-                               align_corners=True)
-            return torch.lerp(wp[n:], wp[:n], torch.sigmoid(m))
-
-        lib_err = float((lib(*lib_inputs[0]) - warp_mod.warp2_blend_planes_ref(
-            a.float(), b.float(), flow, mask, False)).abs().max())
-        library_ms = device_ms(lib, lib_inputs)
-        records.append({
-            "launch": name, "img": [n, c, h, w], "dtype": "bf16", "flow_dtype": "bf16",
-            "mask_dtype": "bf16", "emit_pair": need_pair, "launches_per_forward": 1,
-            "plan": cuda_blend.k2_plan(a, flow, mask, (0,) * (3 if need_pair else 1)),
-            "bytes": nbytes, "ms": ms, "other_form_ms": other_ms,
-            "share_of_bound": bound_s * 1e3 / ms,
-            "plain_ms": plain_ms, "composed_ms": composed_ms,
-            "library_ms": library_ms, "library": "F.grid_sample f32 + sigmoid + lerp",
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-            else "operations",
-            "max_abs_err": err, "library_f32_max_abs_vs_plain": lib_err})
-        log(f"  {name}: kernel {ms * 1e3:.1f} us (the "
-            f"{'blend-only' if need_pair else 'pair'} form {other_ms * 1e3:.1f} us), "
-            f"plain {plain_ms * 1e3:.1f} us, "
-            f"composed {composed_ms * 1e3:.1f} us, library {library_ms * 1e3:.1f} us, "
-            f"bound {bound_s * 1e6:.1f} us ({nbytes / 1e6:.1f} MB) -> "
-            f"{bound_s * 1e3 / ms:.1%} of the bound")
-        del inputs, lib_inputs
+    records = [time_blend_launch(warp_mod, dev, gen, name, BATCH, c, h, w, need_pair)
+               for name, c, h, w, need_pair in BLEND_LAUNCHES]
+    worst = max(r["max_abs_err"] for r in records)
     for name, c, h, w, need_pair in BLEND_LAUNCHES:
         x = blend_inputs(BATCH, c, h, w, gen, dev, torch.float32, torch.float32)
         worst = max(worst, check_blend(warp_mod, *x, need_pair, f"{name} f32"))
@@ -1609,13 +1661,15 @@ def family_state_dict(model: str, seed: int = 0) -> dict:
 
 @contextlib.contextmanager
 def recorded_blend(cuda_blend):
-    """Inside: every K2 launch also records whether it stores the pair."""
+    """Inside: every K2 launch also records (N, C, H, W, image dtype, flow
+    dtype, mask dtype, whether it stores the pair) in the yielded list
+    (from any thread: the HTTP server's request threads too)."""
     seen = []
     launch = cuda_blend.launch
 
-    def recorded(*args):
-        seen.append(bool(args[4]))
-        return launch(*args)
+    def recorded(a, b, flow, mask, emit_pair):
+        seen.append((*a.shape, a.dtype, flow.dtype, mask.dtype, bool(emit_pair)))
+        return launch(a, b, flow, mask, emit_pair)
 
     cuda_blend.launch = recorded
     try:
@@ -1678,6 +1732,7 @@ def ladder_path(dev, warp_mod, cuda_warp, cuda_blend, checked_records):
         counts = read_counts(warp_mod)
         k1_last, k2 = final_launches(warp_mod)
         check_counts(counts, LADDER_REQUESTS, times * (k1 + k1_last), times * k2, label)
+        forms = [f[-1] for f in forms]
         if forms != [pair] * (LADDER_REQUESTS * times * k2):
             raise AssertionError(f"{label}: K2 forms {forms}, expected "
                                  f"{'the pair' if pair else 'blend only'}")
@@ -2106,6 +2161,566 @@ def file_io_checks(dev, warp_mod, clip) -> dict:
     shutil.rmtree(work)
     return rec
 
+@contextlib.contextmanager
+def no_plain_on_the_card(warp_mod):
+    """Inside: a CUDA tensor reaching a warp's plain version raises (the
+    served path must launch the kernels)."""
+    names = ("warp_planes_ref", "warp2_blend_planes_ref")
+    saved = {n: getattr(warp_mod, n) for n in names}
+
+    def guard(name, fn):
+        def call(*args, **kw):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                raise AssertionError(f"a CUDA tensor reached {name} on the served path")
+            return fn(*args, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(warp_mod, n, guard(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(warp_mod, n, fn)
+
+
+@contextlib.contextmanager
+def recorded_k1_k2(cuda_warp, cuda_blend):
+    """Inside: the launch keys of K1 ("k1", N, C, H, W, image dtype, flow
+    dtype) and K2 ("k2", N, C, H, W, image dtype, flow dtype, mask dtype,
+    pair), from `recorded_launches` and `recorded_blend`, in the yielded
+    list once the block ends."""
+    keys = []
+    with recorded_launches(cuda_warp) as k1, recorded_blend(cuda_blend) as k2:
+        try:
+            yield keys
+        finally:
+            keys += [("k1", *k[:6]) for k in k1["fwd"]] + [("k2", *k) for k in k2]
+
+
+def check_launch_keys(warp_mod, dev, keys, timed, label) -> dict:
+    """Each distinct launch key (`recorded_k1_k2`) held against its plain
+    version on seeded inputs of its shape and dtypes; the keys in `timed`
+    also timed beside their bounds (`time_fwd_launch`,
+    `time_blend_launch`).  -> {"k1": [records], "k2": [records],
+    "k1_err", "k2_err", "checked": n}."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = {"k1": [], "k2": [], "k1_err": 0.0, "k2_err": 0.0}
+    distinct = sorted(set(keys), key=str)
+    for key in distinct:
+        n, c, h, w = key[1:5]
+        name = f"{label}: {timed[key]}" if key in timed else label
+        if key[0] == "k1":
+            idt, fdt = key[5:]
+            if key in timed:
+                r = time_fwd_launch(warp_mod, dev, gen, name, n, c, h, w, idt, fdt)
+                out["k1"].append(r)
+                e = r["max_abs_err"]
+            else:
+                img = (torch.rand(n, c, h, w, device=dev, generator=gen) if c <= 3 else
+                       torch.randn(n, c, h, w, device=dev, generator=gen) * 3).to(idt)
+                flow = smooth_flow(n, h, w, 8.0 * w / 1280, gen, dev, fdt)
+                e = check_fwd(warp_mod, img, flow,
+                              f"{name} {tuple(img.shape)} {dtypes_label(img, flow)}")
+            out["k1_err"] = max(out["k1_err"], e)
+        else:
+            idt, fdt, mdt, pair = key[5:]
+            if mdt != fdt:
+                raise AssertionError(f"{label}: K2 with a {mdt} mask and a {fdt} flow")
+            if key in timed:
+                r = time_blend_launch(warp_mod, dev, gen, name, n, c, h, w, pair, idt, fdt)
+                out["k2"].append(r)
+                e = r["max_abs_err"]
+            else:
+                x = blend_inputs(n, c, h, w, gen, dev, idt, fdt)
+                e = check_blend(warp_mod, *x, pair, f"{name} {tuple(x[0].shape)} "
+                                f"{dtypes_label(x[0], x[2])}")
+            out["k2_err"] = max(out["k2_err"], e)
+    out["checked"] = len(distinct)
+    return out
+
+
+def launch_name(key) -> str:
+    n, c, h, w = key[1:5]
+    if key[0] == "k2":
+        return f"K2 {'pair' if key[-1] else 'blend only'} {h}x{w} N={n}"
+    return f"K1 C={c} {h}x{w} N={n}"
+
+
+class Http:
+    """Requests to the port's JSON API on 127.0.0.1 (each with a time limit)."""
+
+    def __init__(self, port, auth=None):
+        self.base, self.auth = f"http://127.0.0.1:{port}", auth
+
+    def __call__(self, path, body=None, auth=True):
+        import base64
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, method="GET" if body is None else "POST",
+            data=None if body is None else json.dumps(body).encode())
+        if auth and self.auth:
+            req.add_header("Authorization",
+                           "Basic " + base64.b64encode(self.auth.encode()).decode())
+        try:
+            with urllib.request.urlopen(req, timeout=SERVE_REQUEST_TIMEOUT_S) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            data = e.read()
+            return e.code, (json.loads(data) if data else None)
+
+
+@contextlib.contextmanager
+def http_server(app, eng, **kw):
+    """The port's HTTP API on a free port of 127.0.0.1, served by a thread;
+    shut down, closed and joined on exit."""
+    import threading
+
+    httpd = app.make_http_server(eng, "127.0.0.1", 0, **kw)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(60)
+        if t.is_alive():
+            raise RuntimeError("the HTTP server's thread did not stop")
+
+
+@contextlib.contextmanager
+def staged(services, imageio):
+    """Inside: a pair request's host seconds by stage (utils.profiling.
+    StageTimer): reading the PNGs, queuing the forwards (`exp_doubling`),
+    fetching each cropped frame (which waits for the device) and encoding
+    (rounding to u8, the cv2 writer, the colr atom)."""
+    from rife_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    names = ((imageio, "read_image", "read PNGs"), (services, "exp_doubling", "queue forwards"),
+             (services, "_fetch", "fetch frames"), (services, "_encode_frames", "encode"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in names]
+
+    def timed(fn, stage):
+        def call(*a, **kw):
+            with timer.stage(stage):
+                return fn(*a, **kw)
+        return call
+
+    for (mod, attr, stage), (_, _, fn) in zip(names, saved):
+        setattr(mod, attr, timed(fn, stage))
+    try:
+        yield timer
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def write_mp4(path, frames, fps):
+    import cv2
+
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         (frames[0].shape[1], frames[0].shape[0]))
+    for f in frames:
+        wr.write(np.ascontiguousarray(f[..., ::-1]))
+    wr.release()
+
+
+def mp4_frames(path) -> int:
+    import cv2
+
+    cap, n = cv2.VideoCapture(path), 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def serve_path(dev, warp_mod, cuda_warp, cuda_blend) -> dict:
+    """Phase 14: the serving app over HTTP (see the module docstring)."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        return _serve(dev, warp_mod, cuda_warp, cuda_blend, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _serve(dev, warp_mod, cuda_warp, cuda_blend, work) -> dict:
+    import threading
+
+    import cv2
+
+    from rife_tpu_torch.engine import (DiskInterpolator, exp_doubling, load_checkpoint,
+                                       state_dict_from_jax)
+    from rife_tpu_torch.ops import pad_centered, plan_pad_centered
+    from rife_tpu_torch.serve import app, config, services
+    from rife_tpu_torch.utils import imageio
+    from rife_tpu_torch.utils.imageio import read_image
+    from rife_tpu_torch.utils.memory import MemoryMonitor
+    from rife_tpu_torch.video import have_ffmpeg
+    from rife_tpu_torch.video.mp4meta import read_colr
+
+    mon = MemoryMonitor(dev)
+    up, outd = os.path.join(work, "uploads"), os.path.join(work, "outputs")
+    os.makedirs(up)
+    os.makedirs(outd)
+    a, b = smooth_pair(1, FRAME_H, FRAME_W, PAN)
+    for name, img in (("i0.png", a[0]), ("i1.png", b[0])):
+        cv2.imwrite(os.path.join(up, name), (np.clip(img, 0, 1) * 255 + 0.5).astype(
+            np.uint8)[..., ::-1])
+    clip = os.path.join(up, "clip.mp4")
+    write_mp4(clip, video_clip(SERVE_CLIP_FRAMES, FRAME_H, FRAME_W, VIDEO_PAN), 25)
+    chain = [os.path.join(up, f"chain{fps}.mp4") for fps in (25, 30)]
+    for path, fps, seed in zip(chain, (25, 30), (11, 12)):
+        write_mp4(path, video_clip(CHAIN_FRAMES, FRAME_H, FRAME_W, VIDEO_PAN, seed=seed), fps)
+    log(f"  inputs: a {FRAME_H}x{FRAME_W} PNG pair (pan {PAN}), a {SERVE_CLIP_FRAMES}-frame "
+        f"mp4v clip, two {CHAIN_FRAMES}-frame clips at 25 and 30 fps; ffmpeg "
+        f"{'found' if have_ffmpeg() else 'not found'}, ffprobe "
+        f"{'found' if shutil.which('ffprobe') else 'not found'}")
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak below is this phase's
+    snap0 = mon.snapshot("serve: before load_engine")
+
+    eng = app.load_engine(os.path.dirname(CKPT), device=dev)
+    sd = state_dict_from_jax(load_checkpoint(CKPT)[1])
+    key = "block0.lastconv.weight" if "block0.lastconv.weight" in sd else next(iter(sd))
+    same = torch.equal(eng.model.state_dict()[key].cpu(), sd[key].to(torch.bfloat16))
+    log(f"  load_engine: {eng.model_name}, {eng.compute_dtype}, rung {config.FAST_MODE} "
+        f"(fast_level0 {eng.model_def.config.fast_level0}), {key} equal to the r5 "
+        f"checkpoint's (bf16): {same}")
+    if not (eng.model_name == "rife" and eng.compute_dtype == torch.bfloat16 and same
+            and config.FAST_MODE == 1 and eng.model_def.config.fast_level0):
+        raise AssertionError("load_engine did not give the r5 serving engine")
+    app_pad = plan_pad_centered(FRAME_H, FRAME_W)  # the app's contract: %32, >= 512
+    padded = (1, app_pad.padded_h, app_pad.padded_w, 3)
+    eng.warmup(padded)
+
+    encoded, lock = {}, threading.Lock()
+    real_encode = services._encode_frames
+
+    def encode(frames, out_path, fps):
+        with lock:
+            encoded[out_path] = [np.array(f, np.float32) for f in frames]
+        return real_encode(frames, out_path, fps)
+
+    recs, totals = {}, dict.fromkeys(_counted(warp_mod), 0)
+    saved_det = torch.backends.cudnn.deterministic
+    services._encode_frames = encode
+    try:
+        with recorded_k1_k2(cuda_warp, cuda_blend) as keys, no_plain_on_the_card(warp_mod), \
+                http_server(app, eng, upload_dir=up, output_dir=outd) as port:
+            api = Http(port)
+
+            k1_last, k2_final = final_launches(warp_mod)
+
+            def request(label, path, body, forwards, k1=None, k2=None, frames=None):
+                reset_counts(warp_mod)
+                t0 = time.perf_counter()
+                code, r = api(path, body)
+                dt = time.perf_counter() - t0
+                counts = read_counts(warp_mod)
+                if code != 200:
+                    raise AssertionError(f"{label}: HTTP {code} {r}")
+                n = r.get("frames", r.get("frames_out"))
+                log(f"  {label}: {dt:.3f} s host, {n} frames"
+                    + (f" ({n / dt:.2f} frames out/s)" if n else "") + f"; launches {counts}")
+                if frames is not None and n != frames:
+                    raise AssertionError(f"{label}: {n} frames, expected {frames}")
+                if forwards is not None:
+                    check_counts(counts, forwards,
+                                 LAUNCHES_PER_FORWARD + k1_last if k1 is None else k1,
+                                 k2_final if k2 is None else k2, label)
+                for k, v in counts.items():
+                    totals[k] += v
+                recs[label] = {"seconds": dt, "frames": n, "launches": counts,
+                               "frames_out_per_s": n / dt if n else None, "response": r}
+                return r
+
+            code, health = api("/health")
+            log(f"  /health: {code} {health}")
+            if (code, health.get("status")) != (200, "ok"):
+                raise AssertionError(f"/health: {code} {health}")
+            pair = {"img0_path": os.path.join(up, "i0.png"),
+                    "img1_path": os.path.join(up, "i1.png"), "passes": SERVE_PASSES}
+            rev = {**pair, "img0_path": pair["img1_path"], "img1_path": pair["img0_path"]}
+            n_out, fwd = (1 << SERVE_PASSES) + 1, (1 << SERVE_PASSES) - 1
+
+            torch.backends.cudnn.deterministic = True
+            out_a = os.path.join(outd, "pair.mp4")
+            request("pair (checked)", "/interpolate_pair", {**pair, "out": out_a}, fwd,
+                    frames=n_out)
+            img0, img1 = (read_image(p)[0] for p in (pair["img0_path"], pair["img1_path"]))
+            pa, pad = pad_centered(torch.from_numpy(img0[None]).to(dev), 32, 512)
+            pb, _ = pad_centered(torch.from_numpy(img1[None]).to(dev), 32, 512)
+            if tuple(pa.shape) != padded:
+                raise AssertionError(f"the app padded to {tuple(pa.shape)}")
+            want = [pad.crop(f)[0].float().cpu().numpy()
+                    for f in exp_doubling(eng, [pa, pb], SERVE_PASSES)]
+            differ = [int((g != w).sum()) for g, w in zip(encoded[out_a], want)]
+            log(f"  pair: the {len(want)} frames handed to the encoder against exp_doubling "
+                f"on the same engine: {sum(differ)} elements differ (0)")
+            if len(encoded[out_a]) != len(want) or any(differ):
+                raise AssertionError("the served pair's frames are not exp_doubling's")
+
+            out_d = os.path.join(outd, "pair_disk.mp4")
+            request("pair, disk-based (checked)", "/interpolate_pair",
+                    {**pair, "out": out_d, "disk_based": True}, fwd, frames=n_out)
+            ha, hpad = pad_centered(torch.from_numpy(img0), 32, 512)
+            hb, _ = pad_centered(torch.from_numpy(img1), 32, 512)
+            di = DiskInterpolator(eng, os.path.join(work, "disk"))
+            want_d = [hpad.crop(torch.from_numpy(f)).numpy()
+                      for f in di.interpolate([ha.numpy(), hb.numpy()], n_out)]
+            di.cleanup()
+            differ = sum(int((g != w).sum()) for g, w in zip(encoded[out_d], want_d))
+            log(f"  pair, disk-based: against DiskInterpolator on the same engine: {differ} "
+                f"elements differ (0)")
+            if len(encoded[out_d]) != n_out or differ:
+                raise AssertionError("the disk-based pair's frames are not the interpolator's")
+
+            out_b = os.path.join(outd, "pair_rev.mp4")
+            request("pair, reversed (checked)", "/interpolate_pair", {**rev, "out": out_b},
+                    fwd, frames=n_out)
+            both = [os.path.join(outd, "concurrent_a.mp4"),
+                    os.path.join(outd, "concurrent_b.mp4")]
+            errs = []
+
+            def post(body):
+                code, r = api("/interpolate_pair", body)
+                if code != 200:
+                    errs.append((code, r))
+
+            threads = [threading.Thread(target=post, args=({**pair, "out": both[0]},)),
+                       threading.Thread(target=post, args=({**rev, "out": both[1]},))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(SERVE_REQUEST_TIMEOUT_S)
+            dt = time.perf_counter() - t0
+            differ = [sum(int((g != w).sum()) for g, w in zip(encoded[c], encoded[s]))
+                      for c, s in zip(both, (out_a, out_b))]
+            log(f"  two concurrent pair requests: {dt:.3f} s host for {2 * n_out} frames "
+                f"({2 * n_out / dt:.2f} frames out/s); against the sequential ones: "
+                f"{differ} elements differ (0)")
+            if errs or any(t.is_alive() for t in threads) or any(differ) or \
+                    any(len(encoded[c]) != n_out for c in both):
+                raise AssertionError(f"concurrent requests: {errs}, differing {differ}")
+            recs["two concurrent pairs"] = {"seconds": dt, "frames": 2 * n_out,
+                                            "frames_out_per_s": 2 * n_out / dt,
+                                            "elements_differing": differ}
+            torch.backends.cudnn.deterministic = saved_det
+
+            with staged(services, imageio) as stages:
+                request("pair (timed)", "/interpolate_pair",
+                        {**pair, "out": os.path.join(outd, "pair_timed.mp4")}, fwd,
+                        frames=n_out)
+            recs["pair (timed)"]["stages"] = stages.report()
+            log(f"  pair (timed), host seconds by stage: {stages.report()}")
+            r = request("video, exp 1", "/interpolate_video", {"path": clip, "exp": 1}, None,
+                        frames=2 * SERVE_CLIP_FRAMES - 1)
+            vc = recs["video, exp 1"]["launches"]
+            vf = vc["warp_blend"] if k2_final else vc["warp_planes"] // 7
+            if not (vf >= 2 and vc["warp_planes"] == (LAUNCHES_PER_FORWARD + k1_last) * vf
+                    and vc["warp_blend"] == k2_final * vf):
+                raise AssertionError(f"video: launches {vc}")
+            back = mp4_frames(os.path.join(outd, "video.mp4"))
+            log(f"  video: stats {r}; {back} frames read back")
+            if back != 2 * SERVE_CLIP_FRAMES - 1:
+                raise AssertionError(f"video: {back} frames read back")
+            trans = (1 << CHAIN_PASSES) - 1
+            r = request("chain (25 + 30 fps)", "/chain",
+                        {"videos": chain, "transition_passes": CHAIN_PASSES}, trans,
+                        frames=None if have_ffmpeg() else 2 * CHAIN_FRAMES + trans)
+            back = mp4_frames(os.path.join(outd, "chained.mp4"))
+            log(f"  chain: {r['mode']}, {back} frames read back")
+            if not have_ffmpeg() and (r["mode"] != "cv2" or back != 2 * CHAIN_FRAMES + trans):
+                raise AssertionError(f"chain: {r}, {back} frames read back")
+            r = request("reencode", "/reencode", {"path": clip}, 0, 0, 0)
+            log(f"  reencode: {r['action']}")
+            if not have_ffmpeg() and r["action"] != "reencoded_cv2":
+                raise AssertionError(f"reencode: {r}")
+
+            colr = {os.path.basename(p): read_colr(p) for p in encoded}
+            log(f"  colr (primaries, transfer, matrix) of the encoded mp4s: {colr}")
+            if not have_ffmpeg() and set(colr.values()) != {(1, 1, 1)}:
+                raise AssertionError("an mp4 of _encode_frames lacks the BT.709 colr atom")
+            codes = (api("/interpolate_pair", {**pair, "img0_path": "/etc/hostname"})[0],
+                     api("/interpolate_pair", {**pair, "out": os.path.join(up, "x.mp4")})[0],
+                     api("/nope", {})[0])
+            log(f"  input outside the upload dir, output outside the output dir, unknown "
+                f"endpoint: HTTP {codes} (403, 403, 404)")
+            if codes != (403, 403, 404):
+                raise AssertionError(f"confinement: {codes}")
+        with http_server(app, eng, upload_dir=up, output_dir=outd,
+                         auth=("smoke", "secret")) as port:
+            api = Http(port, "smoke:secret")
+            auth_codes = (api("/health", auth=False)[0], api("/health")[0])
+        log(f"  basic auth: without credentials HTTP {auth_codes[0]} (401), with "
+            f"{auth_codes[1]} (200)")
+        if auth_codes != (401, 200):
+            raise AssertionError(f"basic auth: {auth_codes}")
+    finally:
+        services._encode_frames = real_encode
+        torch.backends.cudnn.deterministic = saved_det
+    snap1 = mon.snapshot("serve: after the requests")
+    log(f"  memory: {snap0['bytes_in_use'] / 1e9:.3f} GB in use before load_engine, "
+        f"{snap1['bytes_in_use'] / 1e9:.3f} GB after (the phase's peak "
+        f"{snap1['peak_bytes_in_use'] / 1e9:.3f} of {snap1['bytes_limit'] / 1e9:.1f} GB, "
+        f"{snap1['pressure']})")
+    # Batch 1 (K1's pairs N = 2, K2 N = 1) is new to these kernels; the
+    # video's batch-4 launches are phase 3's shapes, checked again.
+    timed = {k: launch_name(k) for k in keys if k[1] == (2 if k[0] == "k1" else 1)}
+    shapes = check_launch_keys(warp_mod, dev, keys, timed, "serve")
+    del eng
+    torch.cuda.empty_cache()
+    return {"requests": recs, "launches": totals, "shapes": shapes,
+            "memory": [snap0, snap1], "ffmpeg": have_ffmpeg()}
+
+
+def hd_frames(n, h, w, seed):
+    """`n` YUV frames in [0, 1] (chroma centred at 0.5) of smooth content
+    panned VIDEO_PAN px a frame, for YUV420Writer."""
+    from rife_tpu_torch.video.yuv import rgb_to_yuv
+
+    shift = np.array([0, 0.5, 0.5], np.float32)
+    return [rgb_to_yuv(f.astype(np.float32) / 255.0) + shift
+            for f in video_clip(n, h, w, VIDEO_PAN, seed=seed)]
+
+
+def bench_fixtures(root) -> dict:
+    """Phase 15's datasets, laid out as the reference reads them."""
+    import cv2
+
+    from rife_tpu_torch.video.yuv import YUV420Writer
+
+    t0 = time.perf_counter()
+    clips = {}
+    for n, h, w in ((HD_1080_FRAMES, 1080, 1920), (HD_720_FRAMES, 720, 1280)):
+        path = os.path.join(root, f"clip_{h}p.yuv")
+        wr = YUV420Writer(path, w, h)
+        for f in hd_frames(n, h, w, seed=h):
+            wr.write_frame(f)
+        wr.close()
+        clips[h] = path
+
+    def png(path, u8):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv2.imwrite(path, u8[..., ::-1])
+
+    for i in range(2):
+        for k, f in enumerate(video_clip(3, 256, 256, 2, seed=30 + i)):
+            png(os.path.join(root, "ucf", f"d{i}", ("frame_00.png", "frame_01_gt.png",
+                                                    "frame_02.png")[k]), f)
+        for k, f in enumerate(video_clip(3, 540, 960, 2, seed=40 + i)):
+            png(os.path.join(root, "atd", f"d{i}", f"frame{k + 1}.png"), f)
+    from rife_tpu_torch.cli.benchmarks import _MIDDLEBURY
+
+    for j, name in enumerate(_MIDDLEBURY):
+        h, w = (480, 640) if j % 2 else (388, 584)
+        f0, gt, f1 = video_clip(3, h, w, 2, seed=50 + j)
+        png(os.path.join(root, "mb", name, "frame10.png"), f0)
+        png(os.path.join(root, "mb", name, "frame11.png"), f1)
+        png(os.path.join(root, "mbgt", name, "frame10i11.png"), gt)
+    log(f"  fixtures in {time.perf_counter() - t0:.2f} s: 1080p .yuv "
+        f"{os.path.getsize(clips[1080]) / 1e6:.1f} MB ({HD_1080_FRAMES} frames), 720p .yuv "
+        f"{os.path.getsize(clips[720]) / 1e6:.1f} MB ({HD_720_FRAMES}), ucf101 2 x 256x256, "
+        f"middlebury 12 (388x584 / 480x640), atd12k 2 x 540x960")
+    return clips
+
+
+BENCH_KEYS = {"hd": ["benchmark", "psnr_y"], "hd4x": ["benchmark", "psnr_720p"],
+              "ucf101": ["benchmark", "psnr", "ssim"], "middlebury": ["benchmark", "ie"],
+              "atd12k": ["benchmark", "psnr", "ssim"],
+              "testtime": ["benchmark", "seconds_per_frame", "fps"]}
+
+
+def benchmarks_path(dev, warp_mod, cuda_warp, cuda_blend) -> dict:
+    """Phase 15: the six protocol benchmarks through their CLI (see the
+    module docstring)."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    try:
+        return _benchmarks(dev, warp_mod, cuda_warp, cuda_blend, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _benchmarks(dev, warp_mod, cuda_warp, cuda_blend, work) -> dict:
+    import argparse
+    import io
+
+    from rife_tpu_torch.cli import benchmarks
+    from rife_tpu_torch.video.yuv import rgb_chroma_route
+
+    log(f"  read_rgb's chroma upsample on this host: {rgb_chroma_route()}")
+    clips = bench_fixtures(work)
+    r5 = os.path.dirname(CKPT)
+    seeded = os.path.join(work, "no_checkpoint")
+    runs = [  # (name, arguments, forwards, K1 per forward)
+        ("hd", ["--clips", f"{clips[1080]}:1080:1920", "--modelDir", r5],
+         (HD_1080_FRAMES - 1) // 2, 6),
+        ("hd4x", ["--model", "rife_m", "--modelDir", seeded,
+                  "--clips", f"{clips[720]}:720:1280"], 3 * ((HD_720_FRAMES - 1) // 4), 6),
+        ("ucf101", ["--root", os.path.join(work, "ucf"), "--modelDir", r5], 2, 6),
+        ("middlebury", ["--root", os.path.join(work, "mb"), "--gt",
+                        os.path.join(work, "mbgt"), "--modelDir", r5], 12, 6),
+        ("atd12k", ["--root", os.path.join(work, "atd"), "--modelDir", r5], 2, 6),
+        ("testtime", ["--warmup", str(TESTTIME_ITERS), "--iters", str(TESTTIME_ITERS),
+                      "--dtype", "bfloat16", "--modelDir", r5], 2 * TESTTIME_ITERS, 6),
+    ]
+    rec, all_keys, timed = {}, [], {}
+    k1_last, k2 = final_launches(warp_mod)
+    for name, args, forwards, k1 in runs:
+        buf = io.StringIO()
+        with recorded_k1_k2(cuda_warp, cuda_blend) as keys, no_plain_on_the_card(warp_mod):
+            reset_counts(warp_mod)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                benchmarks.main([name, *args])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts(warp_mod)
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"  {name}> {line}")
+        res = json.loads(lines[-1])
+        ok = sorted(res) == sorted(BENCH_KEYS[name]) and all(
+            math.isfinite(v) for k, v in res.items() if k != "benchmark")
+        log(f"  {name}: {dt:.2f} s host (engine build and reads included), {forwards} "
+            f"forwards; launches {counts}; JSON keys and values {'ok' if ok else 'WRONG'}")
+        if not ok:
+            raise AssertionError(f"{name}: printed {res}")
+        check_counts(counts, forwards, k1 + k1_last, k2, f"benchmarks {name}")
+        rec[name] = {"seconds": dt, "forwards": forwards, "launches": counts, "result": res,
+                     "k1_launch_shapes": sorted({str(k[1:5]) for k in keys if k[0] == "k1"})}
+        all_keys += keys
+        if name in ("hd", "hd4x"):
+            timed.update({k: f"{name} {launch_name(k)}" for k in keys})
+        if name == "testtime":
+            eng = benchmarks._engine(argparse.Namespace(
+                modelDir=r5, model=None, scale=1.0, dtype="bfloat16", fast=0, device=None))
+            z = torch.zeros((1, 480, 640, 3), dtype=torch.bfloat16, device=dev)
+            eng.warmup(tuple(z.shape))
+            ev = events_ms(eng, z, z, TESTTIME_ITERS)
+            rec[name]["events_ms_per_forward"] = ev
+            log(f"  testtime: {res['seconds_per_frame'] * 1e3:.3f} ms a frame on the host "
+                f"clock between two synchronisations; the same forward by CUDA events "
+                f"{ev:.3f} ms")
+            if not res["seconds_per_frame"] * 1e3 >= 0.9 * ev:
+                raise AssertionError("testtime reports less than the forwards' device time")
+            del eng
+        torch.cuda.empty_cache()
+    shapes = check_launch_keys(warp_mod, dev, all_keys, timed, "benchmarks")
+    totals = {k: sum(r["launches"][k] for r in rec.values()) for k in _counted(warp_mod)}
+    return {"runs": rec, "launches": totals, "shapes": shapes,
+            "chroma_route": rgb_chroma_route()}
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2186,9 +2801,17 @@ def main() -> int:
 
     with Phase("video"):
         video = video_path(dev, warp_mod)
-    video_runs = {f"video {k}": video[k]["launches"]
+    with Phase("serve"):
+        serve_rec = serve_path(dev, warp_mod, cuda_warp, cuda_blend)
+
+    with Phase("benchmarks"):
+        bench = benchmarks_path(dev, warp_mod, cuda_warp, cuda_blend)
+
+    path_runs = {f"video {k}": video[k]["launches"]
                   for k in ("2x_checked", "2x", "4x", "v425_4x")}
-    video_runs.update({f"video {k}": video["file_io"][k]["launches"]
+    path_runs["serve http"] = serve_rec["launches"]
+    path_runs.update({f"benchmarks {k}": r["launches"] for k, r in bench["runs"].items()})
+    path_runs.update({f"video {k}": video["file_io"][k]["launches"]
                        for k in ("interp_img", "interp_video", "disk_interpolator")
                        if k in video["file_io"]})
 
@@ -2206,7 +2829,7 @@ def main() -> int:
                          **{f"serve {c[0]}": ladder[c[0]]["launches"][k]
                             for c in LADDER_CONFIGS},
                          "protocol": protocol["launches"][k],
-                         **{p: c[k] for p, c in video_runs.items()}}
+                         **{p: c[k] for p, c in path_runs.items()}}
 
     def nhwc_row(kernel, replaces, **extra):
         recs = [r for r in nhwc_records if r["kernel"] == kernel]
@@ -2229,7 +2852,8 @@ def main() -> int:
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
         "launches": sum(by_path("warp_planes").values()),
         "launches_by_path": by_path("warp_planes"),
-        "max_abs_err": max(worst, fwd_worst_train, ladder_worst),
+        "max_abs_err": max(worst, fwd_worst_train, ladder_worst, serve_rec["shapes"]["k1_err"],
+                           bench["shapes"]["k1_err"]),
         "ms": per_fwd(records, "ms"), "plain_ms": per_fwd(records, "plain_ms"),
         "bound_ms": per_fwd(records, "bound_ms"), "bound_by": bound_by(records),
         "library_ms": per_fwd(records, "library_ms"),
@@ -2246,7 +2870,12 @@ def main() -> int:
                            "k2_per_forward", "k2_form")}
                    for c in LADDER_CONFIGS},
         "per_launch_ladder": ladder_records, "ladder_path": ladder,
-        "protocol_path": protocol, "video_path": video, "card": smi}, {
+        "protocol_path": protocol, "video_path": video,
+        "per_launch_serve": serve_rec["shapes"]["k1"],
+        "per_launch_benchmarks": bench["shapes"]["k1"],
+        "serve_path": {k: serve_rec[k] for k in ("requests", "launches", "memory", "ffmpeg")},
+        "benchmarks_path": {k: bench[k] for k in ("runs", "launches", "chroma_route")},
+        "card": smi}, {
         "name": "warp_planes_bwd", "route": "cuda",
         "source": "rife_tpu_torch/csrc/warp_planes_bwd.cu",
         "replaces": "rife_tpu/ops/pallas/warp_v5.py:337",
@@ -2268,7 +2897,8 @@ def main() -> int:
         "replaces": "rife_tpu/ops/pallas/warp_blend.py:215",
         "launches": sum(by_path("warp_blend").values()),
         "launches_by_path": by_path("warp_blend"),
-        "max_abs_err": max(blend_worst, ladder_blend_worst),
+        "max_abs_err": max(blend_worst, ladder_blend_worst, serve_rec["shapes"]["k2_err"],
+                           bench["shapes"]["k2_err"]),
         "ms": v425_blend["ms"], "plain_ms": v425_blend["plain_ms"],
         "bound_ms": v425_blend["bound_ms"], "bound_by": v425_blend["bound_by"],
         "library_ms": v425_blend["library_ms"],
@@ -2276,6 +2906,8 @@ def main() -> int:
         "times_are": "per v4.25 forward (one blend-only launch)",
         "design": K2_DESIGN, "plan": {r["launch"]: r["plan"] for r in blend_records},
         "per_launch": blend_records, "ab": ab,
+        "per_launch_serve": serve_rec["shapes"]["k2"],
+        "per_launch_benchmarks": bench["shapes"]["k2"],
         "launches_per_forward_by_rung": {c[0]: {"launches": ladder[c[0]]["k2_per_forward"],
                                                 "form": ladder[c[0]]["k2_form"]}
                                          for c in LADDER_CONFIGS},

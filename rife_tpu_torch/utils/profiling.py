@@ -1,4 +1,11 @@
-"""Where the device time of a function goes, on one CUDA card.
+"""Profiling: where the device time of a function goes on one CUDA card,
+a torch.profiler trace around any region, and wall-clock stage timers
+(port of rife_tpu/utils/profiling.py, plus the card's breakdowns).
+
+`trace(logdir)` writes a Chrome trace of the region (host and, on a card,
+device activity) into `logdir`, and does nothing when `logdir` is falsy.
+`StageTimer` sums the host seconds of named stages (decode, infer,
+encode).
 
 `device_breakdown(fn, calls)` runs `fn()` `calls` times under
 torch.profiler and sums the device time of every kernel, copy and memset
@@ -14,6 +21,8 @@ card; without one they raise.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -105,3 +114,48 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             "window_ms_per_call": window_us / calls / 1e3,
             "idle_share": max(0.0, 1 - total / window_us),
             "top": [[k[:100], v / calls / 1e3, launches[k] / calls] for k, v in top]}
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None):
+    """torch.profiler over the region, its Chrome trace written to
+    `logdir/trace_<pid>_<ns>.json`; no-op when logdir is falsy."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class StageTimer:
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self) -> dict:
+        return {
+            name: {
+                "total_s": round(self.totals[name], 4),
+                "count": self.counts[name],
+                "mean_ms": round(self.totals[name] / max(1, self.counts[name]) * 1e3, 3),
+            }
+            for name in self.totals
+        }

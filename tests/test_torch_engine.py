@@ -187,7 +187,8 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_rife_tpu():
-    files = sorted((ROOT / "rife_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "rife_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "demo_torch.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -1348,3 +1348,78 @@ def test_pkl_engine_equals_the_rtpu_engine_on_the_card(tmp_path):
     finally:
         torch.backends.cudnn.deterministic = saved
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_app_pair_request_on_the_card(tmp_path):
+    """The serving app's pair request (r5, bf16, rung 1) at passes 2 on a
+    720x1280 pair: 3 batch-1 forwards at 736x1280, so 18 K1 + 3 K2
+    launches; the frames handed to the encoder equal `exp_doubling` on the
+    same engine (cuDNN deterministic), cropped back to 720x1280."""
+    _need_card()
+    import contextlib
+    import io
+
+    from rife_tpu_torch.engine import exp_doubling
+    from rife_tpu_torch.ops import pad_centered
+    from rife_tpu_torch.serve import app, services
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        eng = app.load_engine(os.path.dirname(CKPT))
+    assert eng.device.type == "cuda" and eng.model_name == "rife"
+    rng = np.random.default_rng(0)
+    base = rng.random((760, 1330, 3)).astype(np.float32)
+    for _ in range(3):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) / 3
+    a, b = base[:720, :1280], base[16:736, 24:1304]
+    seen = []
+    real = services._encode_frames
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        services._encode_frames = lambda f, o, fps: (seen.append(f), real(f, o, fps))
+        eng.warmup((1, 736, 1280, 3))
+        k1, k2 = tw.warp_planes.launches, tw.warp2_blend_planes.launches
+        r = services.interpolate_pair_to_video(eng, a, b, str(tmp_path / "p.mp4"), passes=2)
+        torch.cuda.synchronize()
+        assert (tw.warp_planes.launches - k1, tw.warp2_blend_planes.launches - k2) == (18, 3)
+        pa, pad = pad_centered(torch.from_numpy(a[None]).cuda(), 32, 512)
+        pb, _ = pad_centered(torch.from_numpy(b[None]).cuda(), 32, 512)
+        want = [pad.crop(f)[0].float().cpu().numpy() for f in exp_doubling(eng, [pa, pb], 2)]
+    finally:
+        services._encode_frames = real
+        torch.backends.cudnn.deterministic = saved
+    assert r["frames"] == 5 and tuple(pa.shape) == (1, 736, 1280, 3)
+    assert len(seen[0]) == 5
+    for got, w in zip(seen[0], want):
+        assert got.shape == (720, 1280, 3)
+        np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.gpu
+def test_testtime_times_the_forwards_not_the_queue(monkeypatch, capsys):
+    """`benchmarks testtime` synchronises the card before and after its
+    timed loop: its seconds/frame is at least the forwards' device time
+    by CUDA events."""
+    _need_card()
+    from rife_tpu_torch.cli import benchmarks
+
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: (syncs.append(d), real(d)))
+    benchmarks.main(["testtime", "--warmup", "3", "--iters", "5", "--dtype", "bfloat16",
+                     "--modelDir", os.path.dirname(CKPT)])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["benchmark"] == "testtime" and len(syncs) >= 2
+    eng = benchmarks._engine(benchmarks.argparse.Namespace(
+        modelDir=os.path.dirname(CKPT), model=None, scale=1.0, dtype="bfloat16", fast=0,
+        device=None))
+    z = torch.zeros((1, 480, 640, 3), dtype=torch.bfloat16, device="cuda")
+    eng.interpolate(z, z)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        eng.interpolate(z, z)
+    end.record()
+    end.synchronize()
+    assert rec["seconds_per_frame"] * 1e3 >= 0.9 * start.elapsed_time(end) / 5

@@ -135,7 +135,10 @@ def test_committed_cpu_rows_hold_the_port_to_rife_tpu():
         assert abs(got["ssim"] - want["ssim"]) <= 1e-4, label
 
 
-@pytest.mark.parametrize("name", benchmarks.NOT_PORTED)
-def test_other_benchmarks_raise_naming_a12b(name):
-    with pytest.raises(NotImplementedError, match="12b"):
+@pytest.mark.parametrize("name", ("ucf101", "middlebury", "hd", "hd4x", "atd12k", "testtime"))
+def test_other_benchmarks_raise_naming_a12b(name, monkeypatch):
+    """The six benchmarks ported after A12b's Vimeo90K protocol run on the
+    card by default and raise without one (no CPU fallback)."""
+    monkeypatch.setattr(benchmarks.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         benchmarks.main([name, "--root", "."])
