@@ -1,20 +1,31 @@
-"""Training CLI of the port (port of rife_tpu/cli/train.py, model `rife`).
+"""Training CLI of the port (port of rife_tpu/cli/train.py), every preset.
 
     python -m rife_tpu_torch.cli.train --data vimeo_triplet --epoch 300 --batch_size 16
     python -m rife_tpu_torch.cli.train --synthetic --steps 16050 --batch_size 16 \\
         --crop 224 --dtype bfloat16 --resume train_log_r5/flownet.rtpu
+    python -m rife_tpu_torch.cli.train --model v4.25 --septuplet --synthetic --steps 100
+    python -m rife_tpu_torch.cli.train --model hdv2 --synthetic --steps 100 --device cpu
 
 Runs on the CUDA card (`--device cuda`, the default; it raises without
 one) or, asked for, on the CPU through the plain versions of the kernels.
-One process, one device.  LR = warmup + cosine scaled by batch / 64, as
-the reference's world_size / 4.  `--steps N` is the run's total step
-count, as in the reference: the cosine ends at step N and training stops
-there, so the second example resumes the r5 run (step 16000) for 50
-steps near its final lr; a horizon at or below the resumed step trains
-one step at the peak lr.  Logs the scalars of step 1 and of every 200th
-step (with the lr the schedule gives that step, as the reference logs
-it), and validation PSNR every `--val_interval` epochs, to
-{log_dir}/metrics.jsonl (and TensorBoard when it imports); saves
+One process, one device.  `--model` takes `rife`, `rife_m`, `rife_2r`,
+`v4.25`, `hd` or `hdv2`, each with the reference's objective
+(`train.loop.loss_fn`), its AdamW weight decay (1e-4 for v4.25 and the
+legacy models, 1e-3 otherwise, unless `--weight_decay` is given), its
+schedule (warmup + cosine scaled by batch / 64, as the reference's
+world_size / 4; the legacy models' cyclic one) and a crop snapped down to
+its pad multiple (v4.25: 224 -> 192).  `--septuplet` trains on 3 of 7
+frames at a fractional timestep (Vimeo septuplets under `--data`, or
+synthetic ones); only `rife_m` and v4.25 read the timestep, and the
+others are told so.  `--steps N` is the run's total step count, as in
+the reference: the cosine ends at step N and training stops there, so the
+second example resumes the r5 run (step 16000) for 50 steps near its
+final lr; a horizon at or below the resumed step trains one step at the
+peak lr.  Logs the scalars of step 1 and of every 200th step (with the lr
+the schedule gives that step, as the reference logs it), image panels
+(`utils.viz`) on the first step and every `--vis_interval` steps, and
+validation PSNR every `--val_interval` epochs, to {log_dir}/metrics.jsonl
+and {log_dir}/panels/ (and TensorBoard when it imports); saves
 {log_dir}/flownet.rtpu (params, AdamW state, step: the reference
 trainer's format, resumable by either trainer) every epoch and, unlike
 the reference, also when the run stops.  Batches are loaded on
@@ -22,11 +33,9 @@ the reference, also when the run stops.  Batches are loaded on
 reference; `--warp_impl` is accepted and every value takes the port's
 kernels.
 
-Not ported yet, and refused: models other than `rife` (ROADMAP A13; the
-legacy models `hd` and `hdv2` are served, not trained),
-`--septuplet` (A13), `--vis_interval > 0` (image panels, A13) and
-`--steps_per_call > 1` (the reference's chained steps hide a TPU
-runtime's dispatch cost; A13 records why they are not ported).
+Refused: `--steps_per_call > 1` (the reference's chained steps hide a TPU
+runtime's dispatch cost; the card has no such cost, ROADMAP "Not ported,
+by design").
 """
 from __future__ import annotations
 
@@ -37,12 +46,14 @@ import time
 
 import torch
 
-from rife_tpu_torch.data import SyntheticTriplets, VimeoTriplets, batch_iterator
+from rife_tpu_torch.data import (SyntheticSeptuplets, SyntheticTriplets,
+                                 VimeoSeptuplets, VimeoTriplets, batch_iterator)
 from rife_tpu_torch.engine.inference import resolve_device
-from rife_tpu_torch.models.registry import get_model_def
-from rife_tpu_torch.train import (eval_step, restore_checkpoint, save_checkpoint,
-                                  train_init, train_step)
+from rife_tpu_torch.models.registry import MODEL_REGISTRY, get_model_def
+from rife_tpu_torch.train import (cyclic_lr_schedule, eval_step, restore_checkpoint,
+                                  save_checkpoint, train_init, train_step, vis_to_host)
 from rife_tpu_torch.utils.logging import MetricLogger
+from rife_tpu_torch.utils.viz import dump_panels
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,19 +63,24 @@ def parse_args(argv=None):
     ap.add_argument("--epoch", type=int, default=300)
     ap.add_argument("--batch_size", type=int, default=16)
     ap.add_argument("--data", type=str, default="vimeo_triplet",
-                    help="Vimeo90K triplet root (tri_trainlist.txt, sequences/)")
+                    help="Vimeo90K root (tri_trainlist.txt or, with --septuplet, "
+                         "sep_trainlist.txt, and sequences/)")
     ap.add_argument("--synthetic", action="store_true",
-                    help="train on synthetic triplets (no dataset needed)")
+                    help="train on synthetic triplets or septuplets (no dataset needed)")
     ap.add_argument("--synthetic_n", type=int, default=None,
                     help="synthetic dataset size (default 4*batch, min 64; sets "
                          "the epoch length and thus the checkpoint cadence)")
     ap.add_argument("--septuplet", action="store_true",
-                    help="not ported yet (ROADMAP A13)")
+                    help="fractional-timestep training on septuplets (3 of 7 "
+                         "frames, t = (i1 - i0) / (i2 - i0)); --data should point "
+                         "at vimeo_septuplet")
     ap.add_argument("--steps", type=int, default=None,
                     help="total steps (a resumed run counts from its step): "
                          "the lr schedule's horizon and where training stops")
-    ap.add_argument("--model", type=str, default="rife")
-    ap.add_argument("--weight_decay", type=float, default=1e-3)
+    ap.add_argument("--model", type=str, default="rife", choices=sorted(MODEL_REGISTRY))
+    ap.add_argument("--weight_decay", type=float, default=None,
+                    help="AdamW weight decay (default 1e-4 for v4.25, hd and "
+                         "hdv2, 1e-3 otherwise)")
     ap.add_argument("--crop", type=int, default=224)
     ap.add_argument("--log_dir", type=str, default="train_log")
     ap.add_argument("--resume", type=str, default=None,
@@ -82,9 +98,10 @@ def parse_args(argv=None):
                          "for every flow (the plain versions on the CPU)")
     ap.add_argument("--dtype", type=str, default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--steps_per_call", type=int, default=1,
-                    help="only 1: chained steps are not ported (ROADMAP A13)")
-    ap.add_argument("--vis_interval", type=int, default=0,
-                    help="only 0: image panels are not ported yet (ROADMAP A13)")
+                    help="only 1: chained steps are not ported (ROADMAP.md, "
+                         "\"Not ported, by design\")")
+    ap.add_argument("--vis_interval", type=int, default=1000,
+                    help="image-panel cadence in steps (0 disables)")
     ap.add_argument("--val_interval", type=int, default=5,
                     help="validation cadence in epochs")
     ap.add_argument("--val_batches", type=int, default=None,
@@ -92,30 +109,23 @@ def parse_args(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.model != "rife":
-        raise NotImplementedError(f"--model {args.model}: training is ported for "
-                                  f"rife only (ROADMAP.md, queue A item 13)")
-    if args.septuplet:
-        raise NotImplementedError("--septuplet is not ported yet (ROADMAP.md, "
-                                  "queue A item 13)")
-    if args.vis_interval > 0:
-        raise NotImplementedError("--vis_interval > 0: image panels are not ported "
-                                  "yet (ROADMAP.md, queue A item 13)")
     if args.steps_per_call != 1:
         raise NotImplementedError("--steps_per_call > 1 is not ported (ROADMAP.md, "
-                                  "queue A item 13)")
+                                  "\"Not ported, by design\")")
     return args
 
 
 def _datasets(args):
     if args.synthetic:
-        train_ds = SyntheticTriplets(n=args.synthetic_n or max(args.batch_size * 4, 64),
-                                     h=args.crop + 8, w=args.crop + 8)
+        cls = SyntheticSeptuplets if args.septuplet else SyntheticTriplets
+        train_ds = cls(n=args.synthetic_n or max(args.batch_size * 4, 64),
+                       h=args.crop + 8, w=args.crop + 8)
         # Validation frames are not cropped: size them at the crop itself.
-        val_ds = SyntheticTriplets(n=args.batch_size, h=args.crop, w=args.crop, seed=7)
+        val_ds = cls(n=args.batch_size, h=args.crop, w=args.crop, seed=7)
         val_ds.split = "validation"
         return train_ds, val_ds
-    return VimeoTriplets(args.data, "train"), VimeoTriplets(args.data, "validation")
+    cls = VimeoSeptuplets if args.septuplet else VimeoTriplets
+    return cls(args.data, "train"), cls(args.data, "validation")
 
 
 def _validate(state, args, val_ds, dtype) -> dict | None:
@@ -142,14 +152,24 @@ def main(argv=None):
         new_crop = max(pm, args.crop // pm * pm)
         print(f"crop {args.crop} -> {new_crop} ({args.model} needs %{pm})")
         args.crop = new_crop
+    if args.septuplet and args.model not in ("rife_m", "v4.25"):
+        print(f"note: --septuplet varies the timestep but --model {args.model} "
+              "has no timestep input (use rife_m or v4.25)")
     os.makedirs(args.log_dir, exist_ok=True)
     train_ds, val_ds = _datasets(args)
     steps_per_epoch = max(1, len(train_ds) // args.batch_size)
     total_steps = args.steps or steps_per_epoch * args.epoch
     dtype = _DTYPES[args.dtype]
+    world_scale = args.batch_size / 64.0  # the reference's 4 ranks x batch 16 => x1
+    legacy = args.model in ("hd", "hdv2")
+    wd = args.weight_decay
+    if wd is None:  # train_log/RIFE_HDv3.py and oldmodel/RIFE_HD.py: 1e-4
+        wd = 1e-4 if legacy or args.model == "v4.25" else 1e-3
+    # The legacy presets' CyclicLR 1e-6 <-> 1e-3, 8000 steps up.
+    schedule = cyclic_lr_schedule(world_scale=world_scale) if legacy else None
     state = train_init(model_def, total_steps=total_steps, seed=args.seed,
-                       world_scale=args.batch_size / 64.0,
-                       weight_decay=args.weight_decay, device=device)
+                       world_scale=world_scale, weight_decay=wd, schedule=schedule,
+                       device=device)
     if args.resume:
         restore_checkpoint(state, args.resume)
         print(f"resumed from {args.resume} at step {state.step}")
@@ -163,7 +183,7 @@ def main(argv=None):
     try:
         for batch in batches:
             t1 = time.perf_counter()
-            metrics = train_step(state, batch, dtype)
+            metrics, vis = train_step(state, batch, dtype, with_vis=True)
             step_before, step = step, step + 1
             if step % 200 == 0 or step == 1:
                 m = {k: float(v) for k, v in metrics.items()}  # waits for the step
@@ -174,6 +194,9 @@ def main(argv=None):
                          t_train=round(time.perf_counter() - t1, 4))
                 logger.log("train", step, m)
                 print(json.dumps(m), flush=True)
+            if args.vis_interval > 0 and (step_before == 0 or step % args.vis_interval == 0):
+                dump_panels(logger, step, vis_to_host(vis))
+            del vis
             epoch_done = step_before // steps_per_epoch != step // steps_per_epoch
             if epoch_done:
                 save_checkpoint(state, os.path.join(args.log_dir, "flownet.rtpu"))

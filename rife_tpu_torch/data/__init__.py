@@ -1,5 +1,7 @@
-"""Training data (numpy only): Vimeo90K triplets, synthetic triplets and
-the batch iterator."""
-from rife_tpu_torch.data.vimeo import SyntheticTriplets, VimeoTriplets, batch_iterator
+"""Training data (numpy only): Vimeo90K triplets and septuplets, their
+synthetic stand-ins and the batch iterator."""
+from rife_tpu_torch.data.vimeo import (SyntheticSeptuplets, SyntheticTriplets,
+                                       VimeoSeptuplets, VimeoTriplets, batch_iterator)
 
-__all__ = ["SyntheticTriplets", "VimeoTriplets", "batch_iterator"]
+__all__ = ["SyntheticSeptuplets", "SyntheticTriplets", "VimeoSeptuplets",
+           "VimeoTriplets", "batch_iterator"]

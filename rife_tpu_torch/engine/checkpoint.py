@@ -411,27 +411,29 @@ def save_params(path: str, tree, meta: dict | None = None) -> None:
     os.replace(tmp, path)
 
 
-def train_tree(params: dict, mu: dict, nu: dict, step: int) -> dict:
-    """The reference trainer's checkpoint tree from state dicts of the
-    parameters and AdamW's two moments after `step` updates (Adam's count,
-    the schedule's count and the trainer's step are all `step`)."""
+def train_tree(params: dict, mu: dict, nu: dict, step: int, model: str = "rife") -> dict:
+    """The reference trainer's checkpoint tree from state dicts of
+    `model`'s parameters and AdamW's two moments after `step` updates
+    (Adam's count, the schedule's count and the trainer's step are all
+    `step`), each in the reference's layouts for that model."""
     count = np.asarray(step, np.int32)
-    return {"params": jax_tree_from_state_dict(params),
-            "opt_state": [[count, jax_tree_from_state_dict(mu),
-                           jax_tree_from_state_dict(nu)], {}, [count]],
+    tree = lambda sd: jax_tree_from_state_dict(sd, model=model)  # noqa: E731
+    return {"params": tree(params),
+            "opt_state": [[count, tree(mu), tree(nu)], {}, [count]],
             "step": np.asarray(step, np.int64)}
 
 
 def load_train_tree(path: str):
     """Read a training checkpoint -> (model name, params, mu, nu state
-    dicts, step).  Adam's count, the schedule's count and the step must
-    agree, as the reference trainer keeps them."""
+    dicts, step), carried by the layouts of the model its meta names.
+    Adam's count, the schedule's count and the step must agree, as the
+    reference trainer keeps them."""
     tree, meta = load_params(path)
     adam, _, sched = tree["opt_state"]
     counts = {int(adam[0]), int(sched[0]), int(tree["step"])}
     if len(counts) != 1:
         raise ValueError(f"{path}: Adam count {int(adam[0])}, schedule count "
                          f"{int(sched[0])} and step {int(tree['step'])} differ")
-    return (meta.get("model", "rife"), state_dict_from_jax(tree["params"]),
-            state_dict_from_jax(adam[1]), state_dict_from_jax(adam[2]),
-            counts.pop())
+    model = meta.get("model", "rife")
+    sd = lambda t: state_dict_from_jax(t, model=model)  # noqa: E731
+    return model, sd(tree["params"]), sd(adam[1]), sd(adam[2]), counts.pop()

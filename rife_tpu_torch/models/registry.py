@@ -2,9 +2,8 @@
 `rife_m`, `rife_2r`, `v4.25`, `hd` and `hdv2`, and the checkpoint
 detection).
 
-The repo holds no weights of `rife_m` or `rife_2r`; they run from
-`ModelDef.init`.  The legacy models `hd` and `hdv2` are served; training
-them is not ported yet (ROADMAP.md, queue A item 13)."""
+The repo holds no weights of `rife_m`, `rife_2r`, `hd` or `hdv2`; they
+run and train from `ModelDef.init`."""
 from __future__ import annotations
 
 from dataclasses import dataclass

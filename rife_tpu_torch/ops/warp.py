@@ -24,7 +24,10 @@ pair warp plus a torch blend (`warp2_blend_composed`) while it is off.
 call): plain version `warp_ref` on CPU tensors, on CUDA tensors the
 hand-written NHWC kernels (`ops/cuda/warp_nhwc.py`), `warp_nhwc_k3` for
 C < 8 and `warp_nhwc_k4` for C >= 8, as rife_tpu's `warp_pallas_auto`
-splits its f32 inputs.  Their gradient is not ported.
+splits its f32 inputs.  Their gradient (`warp_nhwc_bwd`) is the plane
+warp's on the permuted planes: `warp_planes_bwd_ref` on CPU tensors, K1's
+gradient kernel on NCHW-contiguous copies on CUDA tensors (rife_tpu
+differentiates `warp_xla` there, `warp_pallas_diff`; no kernel of its own).
 """
 from __future__ import annotations
 
@@ -327,22 +330,39 @@ def warp_nhwc_k4(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 warp_nhwc_k4.launches = 0
 
 
+def warp_nhwc_bwd(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                  need_img: bool = True, need_flow: bool = True):
+    """Gradient of the NHWC warp for the cotangent `g` (N, H, W, C) ->
+    (d_img (N, H, W, C) or None, d_flow (N, H, W, 2) or None), in the
+    dtypes of img and flow: `warp_planes_bwd` of the permuted planes, copied
+    NCHW-contiguous (K1's gradient kernel takes no other strides; one
+    launch, counted in `warp_planes_bwd.launches`).  The results are
+    (N, H, W, C) views of NCHW memory."""
+    planes = lambda t: t.permute(0, 3, 1, 2).contiguous()  # noqa: E731
+    d_img, d_flow = warp_planes_bwd(planes(img), planes(flow), planes(g),
+                                    need_img, need_flow)
+    nhwc = lambda t: None if t is None else t.permute(0, 2, 3, 1)  # noqa: E731
+    return nhwc(d_img), nhwc(d_flow)
+
+
 class _WarpNHWC(torch.autograd.Function):
     """The NHWC warp: the plain version on CPU tensors, K3 (C < 8) or K4
-    (C >= 8) on CUDA tensors.  Its backward raises: training the legacy
-    models is not ported, and a zero gradient must never pass for one."""
+    (C >= 8) on CUDA tensors.  The backward is `warp_nhwc_bwd`: the plain
+    gradient on CPU tensors, K1's gradient kernel on CUDA tensors (which
+    launches or raises)."""
 
     @staticmethod
     def forward(ctx, img, flow):
+        ctx.save_for_backward(img, flow)
         if img.device.type == "cpu":
             return warp_ref(img, flow)
         return (warp_nhwc_k3 if img.shape[-1] < 8 else warp_nhwc_k4)(img, flow)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError("the NHWC warp's gradient (training the legacy "
-                                  "models) is not ported yet (ROADMAP.md, queue A "
-                                  "item 13)")
+        img, flow = ctx.saved_tensors
+        need_img, need_flow = ctx.needs_input_grad
+        return warp_nhwc_bwd(img, flow, g.to(img.dtype), need_img, need_flow)
 
 
 def warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

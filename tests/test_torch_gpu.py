@@ -674,9 +674,37 @@ def test_nhwc_kernels_refuse_what_they_cannot_take():
             tw.warp(img, torch.zeros(2, 8, 9, 2, device="cuda"))
         with pytest.raises(TypeError):
             tw.warp(img.half(), flow)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        tw.warp(torch.rand(1, 8, 8, 3, device="cuda", requires_grad=True),
-                torch.zeros(1, 8, 8, 2, device="cuda")).sum().backward()
+    with pytest.raises(TypeError):  # K1's gradient kernel, under the NHWC backward
+        tw.warp_nhwc_bwd(torch.zeros(1, 8, 8, 3, device="cuda").half(),
+                         torch.zeros(1, 8, 8, 2, device="cuda"),
+                         torch.zeros(1, 8, 8, 3, device="cuda").half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,flow_dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("kind", ["smooth", "blocks"])
+@pytest.mark.parametrize("c,stride", [(3, 3), (3, 6), (32, 32)])
+def test_nhwc_gradient_is_one_k1_gradient_launch(dtype, flow_dtype, kind, c, stride):
+    """The NHWC warp's backward on the card: one launch of K1's gradient
+    kernel on NCHW copies of the permuted planes (contiguous or channel
+    slices, as the legacy models pass them), within the gradient kernel's
+    bound of the plain version, d_img and d_flow in the NHWC shapes and
+    dtypes the forward took; never zeros."""
+    _need_card()
+    rng = np.random.default_rng(40 + c + stride)
+    img, flow = _nhwc(rng, 2, 29, 67, c, kind, dtype, flow_dtype, stride)
+    g = torch.from_numpy(rng.normal(0, 1, (2, 29, 67, c)).astype(np.float32)).cuda().to(dtype)
+    ti, tf = img.detach().requires_grad_(True), flow.detach().requires_grad_(True)
+    before = (tw.warp_planes_bwd.launches, tw.warp_planes.launches)
+    tw.warp(ti, tf).backward(g)
+    assert (tw.warp_planes_bwd.launches, tw.warp_planes.launches) == (before[0] + 1,
+                                                                        before[1])
+    assert ti.grad.shape == img.shape and ti.grad.dtype == dtype
+    assert tf.grad.shape == flow.shape and tf.grad.dtype == flow_dtype
+    assert float(ti.grad.abs().sum()) > 0 and float(tf.grad.abs().sum()) > 0
+    planes = [t.permute(0, 3, 1, 2).contiguous() for t in (img, flow, g)]
+    _assert_bwd_within_bound(*planes, (ti.grad.permute(0, 3, 1, 2), tf.grad.permute(0, 3, 1, 2)),
+                             True)
 
 
 @pytest.mark.gpu

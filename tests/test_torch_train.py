@@ -105,7 +105,7 @@ def test_train_step_loss_and_grads_match_reference():
 
     state = train_init(get_model_def("rife"), total_steps=10,
                        params=state_dict_from_jax(_r5_params()), device="cpu")
-    loss, metrics = loss_fn(state.model, batch, state.model_def, torch.float32)
+    loss, metrics, _ = loss_fn(state.model, batch, state.model_def, torch.float32)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     for k in ("loss_l1", "loss_tea", "loss_distill"):
@@ -273,11 +273,60 @@ def test_cli_trains_writes_and_resumes_on_cpu(tmp_path):
     assert jax_load_params(os.path.join(log_dir, "flownet.rtpu"))[1]["step"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--steps_per_call", "2"], ["--vis_interval", "10"],
-                                  ["--septuplet"], ["--model", "v4.25"]])
+@pytest.mark.parametrize("flag", [["--steps_per_call", "2"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.parse_args(["--synthetic"] + flag)
+
+
+@pytest.mark.parametrize("model,flags,wd,crop", [
+    ("hdv2", ["--septuplet"], 1e-4, 64),
+    ("v4.25", ["--septuplet", "--vis_interval", "1"], 1e-4, 96),
+    ("hd", ["--vis_interval", "1", "--weight_decay", "0.01"], 0.01, 64),
+    ("rife_m", ["--septuplet"], 1e-3, 64),
+    ("rife_2r", [], 1e-3, 64),
+])
+def test_cli_trains_each_model_on_cpu(tmp_path, monkeypatch, capsys, model, flags, wd, crop):
+    """2 steps of batch 2: the model's weight decay (1e-4 for v4.25 and the
+    legacy models unless given), its schedule (the legacy models' cyclic
+    lr), the crop snapped to its pad multiple (v4.25: 96 -> 64), the
+    objective's metrics, panels on steps 1 and 2 with --vis_interval 1
+    (step 1 only by default, --vis_interval 1000), the checkpoint under the model's
+    name; septuplets for a model without a timestep get the reference's
+    note."""
+    seen = {}
+    init = cli.train_init
+
+    def spy(model_def, **kw):
+        seen.update(kw)
+        return init(model_def, **kw)
+
+    monkeypatch.setattr(cli, "train_init", spy)
+    log_dir = tmp_path / "log"
+    cli.main(["--model", model, "--synthetic", "--steps", "2", "--batch_size", "2",
+              "--crop", str(crop), "--device", "cpu", "--workers", "0",
+              "--log_dir", str(log_dir)] + flags)
+    out = capsys.readouterr().out
+    assert seen["weight_decay"] == wd
+    legacy = model in ("hd", "hdv2")
+    assert (seen["schedule"] is not None) == legacy
+    if legacy:
+        assert seen["schedule"](1) == pytest.approx(
+            float(jlr.cyclic_lr_schedule(world_scale=2 / 64.0)(1)), rel=1e-6)
+    assert (f"crop {crop} -> 64" in out) == (crop != 64)
+    rec = json.loads(open(log_dir / "metrics.jsonl").read().splitlines()[0])
+    keys = {"v4.25": ("loss_l1", "loss_smooth"), "hd": ("loss_ter", "loss_cons"),
+            "hdv2": ("loss_ter", "loss_cons"), "rife_m": ("loss_tea", "loss_distill"),
+            "rife_2r": ("loss_tea", "loss_distill")}
+    assert rec["step"] == 1 and all(np.isfinite(rec[k]) for k in ("loss",) + keys[model])
+    pngs = sorted(p.relative_to(log_dir).as_posix() for p in log_dir.rglob("*.png"))
+    steps = (1, 2) if "--vis_interval" in flags else (1,)
+    assert pngs == sorted(f"panels/step_{s:08d}/{i}_{k}.png" for s in steps
+                          for i in (0, 1) for k in ("img", "flow", "mask"))
+    tree, meta = jax_load_params(str(log_dir / "flownet.rtpu"))
+    assert meta == {"model": model, "step": 2}
+    assert ("no timestep input" in out) == (
+        model not in ("rife_m", "v4.25") and "--septuplet" in flags)
 
 
 def test_cli_logs_the_lr_the_reference_logs(tmp_path):

@@ -117,13 +117,65 @@ def test_warp_on_channels_last_strides_is_the_same():
 
 
 def test_warp_backward_raises_instead_of_returning_zeros():
-    img = torch.rand(1, 8, 8, 3, requires_grad=True)
-    flow = torch.rand(1, 8, 8, 2, requires_grad=True)
-    out = tw.warp(img, flow)
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        out.sum().backward()
-    assert img.grad is None and flow.grad is None
+    """The NHWC warp's backward is the plain gradient on CPU tensors (not
+    zeros: it equals warp_planes_bwd_ref on the permuted planes, bit for
+    bit, and counts no kernel launch); on a device without a kernel it
+    raises rather than fall back."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.random((1, 8, 8, 3), np.float32)).requires_grad_(True)
+    flow = torch.from_numpy(_flow(rng, 1, 8, 8, "smooth")).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(0, 1, (1, 8, 8, 3)).astype(np.float32))
+    before = tw.warp_planes_bwd.launches
+    tw.warp(img, flow).backward(g)
+    d_img, d_flow = tw.warp_planes_bwd_ref(img.detach().permute(0, 3, 1, 2).contiguous(),
+                                           flow.detach().permute(0, 3, 1, 2).contiguous(),
+                                           g.permute(0, 3, 1, 2).contiguous())
+    assert torch.equal(img.grad, d_img.permute(0, 2, 3, 1))
+    assert torch.equal(flow.grad, d_flow.permute(0, 2, 3, 1))
+    assert float(img.grad.abs().sum()) > 0 and float(flow.grad.abs().sum()) > 0
+    assert tw.warp_planes_bwd.launches == before
+    meta = [torch.zeros(1, 8, 8, c, device="meta") for c in (3, 2, 3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tw.warp_nhwc_bwd(*meta)
+    assert tw.warp_planes_bwd.launches == before
+
+
+@pytest.mark.parametrize("c", [3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_gradient_matches_warp_xla(c, dtype):
+    """d_img and d_flow of the NHWC warp (on a channels-last channel slice,
+    as the legacy models pass it) against jax.grad of rife_tpu's
+    `warp_xla` in f32 within 1e-5 of the terms' scale (a smooth flow with
+    no coordinate on a clamp edge); in bf16, the port's own f32 gradient
+    of the same bf16 inputs rounded once to bf16 (rife_tpu's bf16 warp
+    rounds its weights to bf16, the port keeps them in f32)."""
+    rng = np.random.default_rng(20 + c)
+    n, h, w = 2, 24, 40
+    x = rng.random((n, h, w, 2 * c), np.float32)
+    flow = _flow(rng, n, h, w, "smooth")
+    g = rng.normal(0, 1, (n, h, w, c)).astype(np.float32)
+    loss = lambda i, f: jnp.sum(warp_xla(i, f) * g)  # noqa: E731
+    want_i, want_f = jax.jit(jax.grad(loss, (0, 1)))(jnp.asarray(x[..., c:]),
+                                                      jnp.asarray(flow))
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    ft = torch.from_numpy(flow).to(dtype).requires_grad_(True)
+    img = xt[..., c:]
+    assert img.stride()[-1] == 1 and img.stride()[-2] == 2 * c
+    tw.warp(img, ft).backward(torch.from_numpy(g).to(dtype))
+    assert xt.grad.dtype == ft.grad.dtype == dtype
+    assert float(xt.grad[..., :c].abs().max()) == 0.0
+    got_i, got_f = xt.grad[..., c:].float().numpy(), ft.grad.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got_i, np.asarray(want_i), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(want_i)).max())
+        np.testing.assert_allclose(got_f, np.asarray(want_f), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(want_f)).max())
+    else:
+        i32 = img.detach().float().requires_grad_(True)
+        f32 = ft.detach().float().requires_grad_(True)
+        tw.warp(i32, f32).backward(torch.from_numpy(g).to(dtype).float())
+        assert torch.equal(xt.grad[..., c:], i32.grad.to(dtype))
+        assert torch.equal(ft.grad, f32.grad.to(dtype))
 
 
 def test_cpu_path_launches_no_kernel_and_other_devices_raise():
